@@ -1,0 +1,33 @@
+"""World <-> camera projection for multi-view conditioning
+(tcnerf/core/projection.py). Full fp32 (core/prec.py)."""
+
+from __future__ import annotations
+
+import torch
+
+PIXEL_CLIP = 1e6
+Z_EPS = 1e-8
+
+
+def project_points_mv(world_points: torch.Tensor, src_intrinsics: torch.Tensor,
+                      src_extrinsics_inv: torch.Tensor):
+    """world_points [B, R, S, 3]; intrinsics / extrinsics_inv [B, V, 4, 4].
+
+    Returns (pixel_xy [B, V, R, S, 2], camera_points [B, V, R, S, 4])."""
+    wph = torch.cat([world_points, torch.ones_like(world_points[..., :1])], -1)
+    cam = torch.einsum("bvij,brsj->bvrsi", src_extrinsics_inv, wph)
+    proj = torch.einsum("bvij,bvrsj->bvrsi", src_intrinsics, cam)
+    pixel_xy = proj[..., :2] / torch.clamp(proj[..., 2:3], min=Z_EPS)
+    pixel_xy = torch.clamp(pixel_xy, -PIXEL_CLIP, PIXEL_CLIP)
+    return pixel_xy, cam
+
+
+def world_to_camera_directions_mv(world_dirs: torch.Tensor,
+                                  src_extrinsics_inv: torch.Tensor) -> torch.Tensor:
+    """world_dirs [B, R, 3] -> camera-frame directions [B, V, R, 3].
+
+    Keeps the reference's w=1 quirk: directions are homogenised with w=1,
+    so the translation leaks into them (nerf_utils.py:95-104)."""
+    dh = torch.cat([world_dirs, torch.ones_like(world_dirs[..., :1])], -1)
+    cam = torch.einsum("bvij,brj->bvri", src_extrinsics_inv, dh)
+    return cam[..., :3]

@@ -1,0 +1,136 @@
+"""NeRF embedding MLP with mid-network multi-view mean fusion
+(tcnerf/nn/mlp.py).
+
+The input layout is view-major: the leading axis is (batch * n_views);
+after the `n_blocks // 2` feature blocks the stream is mean-reduced over
+views and the fusion blocks continue on the fused stream.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..core.encoding import positional_encoding
+from ..ops.resmlp import resmlp_rows
+from .blocks import ResNetMLPBlock
+from .layers import Dense, _compute_dtype
+
+
+class SliceableDense(Dense):
+    """`Dense` whose weight splits at input column `split`:
+
+      * `project_tail(img)` applies the feature slice (columns [split:], no
+        bias) to a full-resolution feature image before the bilinear gather
+        (gather/lerp and the product are both linear and commute);
+      * `apply_head(x)` applies the pos/dir-encoding slice plus the bias.
+    """
+
+    def __init__(self, in_features: int, features: int, split: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, features, dtype=dtype)
+        self.split = split
+
+    def project_tail(self, images: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(self.dtype, images, self.weight)
+        return images.to(dt) @ self.weight[:, self.split:].t().to(dt)
+
+    def apply_head(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(self.dtype, x, self.weight)
+        return x.to(dt) @ self.weight[:, :self.split].t().to(dt) \
+            + self.bias.to(dt)
+
+
+class MVResNetMLPEmbedding(nn.Module):
+    """Multi-view NeRF MLP with mean view fusion.
+
+    `n_input_features` is the raw per-sample feature width (n_features + 3
+    RGB); layer_0 is always a `SliceableDense` (the flax parameter tree is
+    the same with and without the slice). `use_pallas` runs both chain
+    halves through the fused resmlp kernel (ops/resmlp.py); on the card that
+    kernel takes bf16 weights, i.e. a bf16 model."""
+
+    def __init__(self, n_input_features: int, n_blocks: int = 6,
+                 hidden_size: int = 128, n_views: int = 2, n_freq: int = 10,
+                 pos_encoding_freq: float = math.pi,
+                 embed_direction_vector: bool = False,
+                 complete_output: bool = False, use_pallas: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.n_views = n_views
+        self.n_freq = n_freq
+        self.pos_encoding_freq = pos_encoding_freq
+        self.embed_direction_vector = embed_direction_vector
+        self.complete_output = complete_output
+        self.use_pallas = use_pallas
+        pd = 6 * n_freq + (6 * n_freq if embed_direction_vector else 3)
+        self.layer_0 = SliceableDense(pd + n_input_features, hidden_size,
+                                      split=pd, dtype=dtype)
+        n_feature = n_blocks // 2
+        self.feature_blocks = []
+        self.fusion_blocks = []
+        for i in range(n_blocks):
+            blk = ResNetMLPBlock(hidden_size, hidden_size, hidden_size,
+                                 dtype=dtype)
+            if i < n_feature:
+                self.add_module(f"feature_block_{i}", blk)
+                self.feature_blocks.append(blk)
+            else:
+                self.add_module(f"fusion_block_{i - n_feature}", blk)
+                self.fusion_blocks.append(blk)
+
+    def encode_pos_dir(self, positions, directions):
+        enc_p = positional_encoding(positions, self.n_freq,
+                                    self.pos_encoding_freq)
+        enc_d = (positional_encoding(directions, self.n_freq,
+                                     self.pos_encoding_freq)
+                 if self.embed_direction_vector else directions)
+        return torch.cat([enc_p, enc_d], dim=-1)
+
+    def project_image(self, images):
+        return self.layer_0.project_tail(images)
+
+    def forward(self, positions, directions, features,
+                features_projected: bool = False):
+        enc = self.encode_pos_dir(positions, directions)
+        if features_projected:
+            head = self.layer_0.apply_head(enc)
+            x = head + features.to(head.dtype)
+        else:
+            x = self.layer_0(torch.cat([enc, features], dim=-1))
+        if self.use_pallas and not self.complete_output:
+            return self._pallas_chain(x)
+        outputs = [x]
+        for block in self.feature_blocks:
+            outputs.append(block(outputs[-1]))
+        pre = outputs[-1]
+        outputs.append(
+            pre.reshape((-1, self.n_views) + pre.shape[1:]).mean(dim=1))
+        for block in self.fusion_blocks:
+            outputs.append(block(outputs[-1]))
+        return outputs if self.complete_output else outputs[-1]
+
+    def _pallas_chain(self, x):
+        """Both chain halves through the fused kernel, with the mean view
+        fusion between them; the stream is f32 inside the kernel."""
+        dt = x.dtype
+
+        def flat(blocks):
+            out = []
+            for blk in blocks:
+                for layer in (blk.layer_0, blk.layer_1):
+                    out += [layer.weight.t().to(dt), layer.bias.to(dt)]
+            return out
+
+        shape = x.shape
+        h1 = resmlp_rows(x.reshape(-1, shape[-1]).contiguous(),
+                         flat(self.feature_blocks), len(self.feature_blocks),
+                         skip_input=True).reshape(shape)
+        fused = h1.reshape((-1, self.n_views) + shape[1:]).mean(dim=1)
+        h2 = resmlp_rows(fused.reshape(-1, shape[-1]).contiguous(),
+                         flat(self.fusion_blocks), len(self.fusion_blocks),
+                         skip_input=True)
+        return h2.reshape(fused.shape)

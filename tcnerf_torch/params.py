@@ -1,0 +1,85 @@
+"""Weight bridge from flax parameter trees, and seeded initialisation.
+
+`from_flax(tree)` takes a flax `params` tree as nested dicts of numpy
+arrays and returns the port's `state_dict` (torch tensors). The port names
+its submodules as the flax modules are named, so a flax path
+`a/b/kernel` becomes `a.b.weight`. Layouts:
+
+  Dense kernel [in, out]             -> Linear weight [out, in] (transpose)
+  Conv kernel HWIO                   -> OIHW
+  ConvTranspose kernel HWIO (`*_deconv`, transpose_kernel=False)
+                                     -> [in, out, kh, kw], spatially flipped
+  DenseGeneral q/k/v [D, heads, hd]  -> [heads*hd, D]; bias [heads, hd] flat
+  DenseGeneral attn_out [heads, hd, D] -> [D, heads*hd]
+  cls_token, pos_embedding, LayerNorm / BatchStatNorm scale and bias: as is
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _convert(path, name: str, value: np.ndarray) -> tuple:
+    a = np.asarray(value, dtype=np.float32)
+    module = path[-1] if path else ""
+    if name == "kernel":
+        if a.ndim == 2:                       # Dense
+            a = a.T
+        elif a.ndim == 3 and module == "attn_out":
+            a = a.reshape(-1, a.shape[-1]).T
+        elif a.ndim == 3:                     # DenseGeneral q/k/v
+            a = a.reshape(a.shape[0], -1).T
+        elif a.ndim == 4 and module.endswith("_deconv"):
+            a = np.transpose(a[::-1, ::-1], (2, 3, 0, 1))
+        elif a.ndim == 4:                     # Conv HWIO -> OIHW
+            a = np.transpose(a, (3, 2, 0, 1))
+        else:
+            raise ValueError(f"unexpected kernel shape {a.shape} at {path}")
+        name = "weight"
+    elif name == "bias" and a.ndim == 2:      # DenseGeneral q/k/v bias
+        a = a.reshape(-1)
+    return name, torch.from_numpy(np.array(a, dtype=np.float32))  # copy
+
+
+def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """flax params tree (nested dicts of numpy arrays) -> port state_dict."""
+    out = {}
+
+    def walk(node, path):
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, path + [key])
+            else:
+                name, t = _convert(path, key, value)
+                out[".".join(path + [name])] = t
+
+    walk(tree, [])
+    return out
+
+
+def init_params(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Seeded initialisation with flax's default scales: weights normal with
+    std 1/sqrt(fan_in) (lecun), biases zero, norm scales one,
+    pos_embedding normal(0.02), cls_token zero. In place, on the model's
+    device (the generator must be on the same device)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight":
+                if p.dim() == 4 and name.endswith("_deconv.weight"):
+                    fan_in = p.shape[0] * p.shape[2] * p.shape[3]
+                else:
+                    fan_in = math.prod(p.shape[1:])
+                p.copy_(torch.randn(p.shape, generator=generator,
+                                    device=p.device) / math.sqrt(fan_in))
+            elif leaf == "pos_embedding":
+                p.copy_(0.02 * torch.randn(p.shape, generator=generator,
+                                           device=p.device))
+            elif leaf == "scale":
+                p.fill_(1.0)
+            else:                             # bias, cls_token
+                p.zero_()
