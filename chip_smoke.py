@@ -17,7 +17,6 @@ Imports torch and the port only.
 from __future__ import annotations
 
 import json
-import math
 import subprocess
 import sys
 import time
@@ -203,6 +202,34 @@ def phase_kernels(dev, card):
     return results
 
 
+def phase_sweep(dev, card):
+    """K1 (chain half) and K2 (fine stage) times at 1,048,576 rows over the
+    number of residual blocks: the intercept is the row I/O, gather and head,
+    the slope the cost of one residual block."""
+    import torch
+    from tcnerf_torch.ops.resmlp import resmlp_rows
+    from tcnerf_torch.ops.swg import swg_field_rows
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = CHUNK * 2 * N_SAMPLES
+    x = torch.randn((n, HID), generator=gen, device=dev).to(torch.bfloat16)
+    img = torch.randn((H, W, HID), generator=gen, device=dev).to(torch.bfloat16)
+    coords = torch.stack([torch.rand(n, generator=gen, device=dev) * (W - 1),
+                          torch.rand(n, generator=gen, device=dev) * (H - 1)],
+                         -1).contiguous()
+    pos = torch.randn((n, 3), generator=gen, device=dev).contiguous()
+    dirs = torch.randn((n, 3), generator=gen, device=dev).contiguous()
+    head_k = torch.randn((120, HID), generator=gen, device=dev) * 0.09
+    head_b = torch.randn((HID,), generator=gen, device=dev) * 0.1
+    for nb in (0, 1, 2, 3, 6):
+        w1 = random_chain(gen, nb, None, 0, dev)
+        w2 = random_chain(gen, nb, None, 4, dev)
+        k1 = time_ms(lambda: resmlp_rows(x, w1, nb, skip_input=True), 10)
+        k2 = time_ms(lambda: swg_field_rows(img, coords, pos, dirs, w2, nb,
+                                            head_k, head_b), 10)
+        print(f"sweep n_blocks={nb}: K1 {k1:.4f} ms, K2 {k2:.4f} ms [{card}]")
+
+
 def build_model(dev, dtype=None, pallas_mlp=False):
     """The full-width nerf_1_view_wo renderer (configs/nerf_1_view_wo.yaml:
     1 view, 480x640, n_features 256, hidden 128, 6 blocks, 64+64 samples,
@@ -241,6 +268,32 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def device_time_by_kernel(fn, card, top=8):
+    """One call of fn under torch.profiler: device time summed by kernel
+    name, and the device's busy share of the host wall time (the profiler
+    slows the host side a little, so the busy share is a lower bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(fn)
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        print("profile: no device time recorded (not measured)")
+        return
+    print(f"profile: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / (wall * 1e3):.1f}%), idle "
+          f"{100 - 100 * busy / (wall * 1e3):.1f}% [{card}]")
+    for ms, count, name in rows[:top]:
+        print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% x{count:<5d} "
+              f"{name[:90]}")
+
+
 def phase_serve(dev, card, scene, launches):
     """render_view on the swg path (K2), then one chunk kernel vs plain."""
     import numpy as np
@@ -264,6 +317,7 @@ def phase_serve(dev, card, scene, launches):
         raise AssertionError("render_view did not launch the swg kernel")
     if rgb.shape != (H, W, 3) or depth.shape != (H, W, 1):
         raise AssertionError(f"render_view shapes {rgb.shape} {depth.shape}")
+    device_time_by_kernel(lambda: inference.render_view(*args, **kw), card)
 
     with torch.inference_mode():
         src_t = torch.as_tensor(src[None, None] / 255.0, dtype=torch.float32,
@@ -428,6 +482,7 @@ def main(argv) -> int:
     kres = phase_kernels(dev, card)
     if "--kernels" in argv:
         return 0
+    phase_sweep(dev, card)
     src_cfg, tgt_cfg = camera_ring(2, height=H, width=W)
     src = np.random.default_rng(0).integers(0, 256, (H, W, 3), dtype=np.uint8)
     scene = (src, src_cfg, tgt_cfg)

@@ -7,8 +7,9 @@
 // layout of two neighbouring n-tiles is exactly the A-operand layout of one
 // k-tile, so a layer's output feeds the next layer's product without a trip
 // through shared memory. Weights ([out][in], nn.Linear layout = the "col"
-// B operand) are staged in shared memory one residual block (two 128x128
-// bf16 layers, 2 x 34 KB with padded rows) at a time; rows are padded to
+// B operand) go through a two-deep ring in shared memory, one residual
+// block (two 128x128 bf16 layers, 2 x 34 KB with padded rows) per stage:
+// cp.async fetches block i+1 while block i computes. Rows are padded to
 // 136 elements so the B-fragment loads of a warp hit 32 distinct banks.
 //
 // Numerics mirror tcnerf/ops/pallas/resmlp.py chain_math: bf16 operands,
@@ -37,9 +38,10 @@ constexpr int MAX_OUT = 8;               // readout width limit (one n-tile)
 
 constexpr int LAYER_SMEM = HID * LDW * 2;                  // bytes
 constexpr int READOUT_SMEM = MAX_OUT * LDW * 2;
-constexpr int BIAS_SMEM = (2 * HID + MAX_OUT) * 4;
-// slot0 | slot1 | readout weights | biases (block pair, then readout)
-constexpr int CHAIN_SMEM = 2 * LAYER_SMEM + READOUT_SMEM + BIAS_SMEM;
+constexpr int BIAS_SMEM = (4 * HID + MAX_OUT) * 4;
+// ring buffer 0 (layer a, layer b) | ring buffer 1 | readout weights |
+// biases (ring 0, ring 1, readout)
+constexpr int CHAIN_SMEM = 4 * LAYER_SMEM + READOUT_SMEM + BIAS_SMEM;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -50,8 +52,14 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ float activate(float x, bool elu) {
-  return elu ? (x > 0.f ? x : expm1f(x)) : fmaxf(x, 0.f);
+// The activation is a compile-time choice: with a run-time flag the elu
+// branch (an inlined expm1f) sits at every activation site of the
+// unrolled chain, and the relu loop turns into a chain of taken branches
+// through code larger than the instruction caches.
+template <bool ELU>
+__device__ __forceinline__ float activate(float x) {
+  if constexpr (ELU) return x > 0.f ? x : expm1f(x);
+  return fmaxf(x, 0.f);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -96,15 +104,30 @@ __device__ __forceinline__ void mm_layer(float (&acc)[NT][4],
   }
 }
 
-// Copy `rows` rows of a row-major [rows][HID] bf16 global matrix into a
-// padded [rows][LDW] shared buffer (16-byte vectors); rows < dst_rows are
-// zero-filled up to dst_rows.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy `rows` rows of a row-major bf16 global matrix (row stride `ld`
+// elements, a multiple of 8) into a padded [rows][LDW] shared buffer,
+// HID columns, 16-byte vectors; rows < dst_rows are zero-filled up to
+// dst_rows.
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           int rows, int dst_rows) {
+                                           int rows, int dst_rows,
+                                           int ld = HID) {
   for (int i = threadIdx.x; i < dst_rows * (HID / 8); i += THREADS) {
     const int r = i / (HID / 8), c = (i % (HID / 8)) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < rows) v = __ldg(reinterpret_cast<const uint4*>(src + r * HID + c));
+    if (r < rows) v = __ldg(reinterpret_cast<const uint4*>(src + r * ld + c));
     *reinterpret_cast<uint4*>(dst + r * LDW + c) = v;
   }
 }
@@ -116,16 +139,20 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src,
 }
 
 struct ChainSmem {
-  bf16* slot0;
-  bf16* slot1;
-  bf16* wro;
-  float* bias;     // [2 * HID] block pair, then [MAX_OUT] readout
+  bf16* w;      // ring: [buffer][layer a, b][HID][LDW]
+  bf16* wro;    // [MAX_OUT][LDW]
+  float* b;     // ring biases: [buffer][2 * HID]
+  float* bro;   // [MAX_OUT]
   __device__ explicit ChainSmem(unsigned char* base) {
-    slot0 = reinterpret_cast<bf16*>(base);
-    slot1 = slot0 + HID * LDW;
-    wro = slot1 + HID * LDW;
-    bias = reinterpret_cast<float*>(wro + MAX_OUT * LDW);
+    w = reinterpret_cast<bf16*>(base);
+    wro = w + 4 * HID * LDW;
+    b = reinterpret_cast<float*>(wro + MAX_OUT * LDW);
+    bro = b + 4 * HID;
   }
+  __device__ bf16* layer(int buf, int l) const {
+    return w + (2 * buf + l) * HID * LDW;
+  }
+  __device__ float* bias(int buf) const { return b + buf * 2 * HID; }
 };
 
 // Stage the readout (relu -> Dense(out_dim)) once; caller syncs.
@@ -133,49 +160,83 @@ __device__ __forceinline__ void stage_readout(const ChainSmem& s,
                                               const bf16* wro,
                                               const float* bro, int out_dim) {
   stage_rows(s.wro, wro, out_dim, MAX_OUT);
-  stage_f32(s.bias + 2 * HID, bro, out_dim, MAX_OUT);
+  stage_f32(s.bro, bro, out_dim, MAX_OUT);
+}
+
+// Issue (and commit) the cp.async copies of residual block `blk` into ring
+// buffer `buf`: two [HID][HID] layers and their 2 * HID biases.
+__device__ __forceinline__ void fetch_block(const ChainSmem& s, int buf,
+                                            const bf16* wpack,
+                                            const float* bpack, int blk) {
+  const bf16* src = wpack + (size_t)(2 * blk) * HID * HID;
+  bf16* dst = s.layer(buf, 0);
+  for (int i = threadIdx.x; i < 2 * HID * (HID / 8); i += THREADS) {
+    const int r = i / (HID / 8), c = (i % (HID / 8)) * 8;   // r < 2 * HID
+    cp_async16(dst + r * LDW + c, src + r * HID + c);
+  }
+  for (int i = threadIdx.x; i < 2 * HID / 4; i += THREADS)
+    cp_async16(s.bias(buf) + 4 * i, bpack + (size_t)(2 * blk) * HID + 4 * i);
+  cp_async_commit();
+}
+
+// One residual block on the register stream with staged weights.
+template <bool ELU>
+__device__ __forceinline__ void residual_block(float (&h)[NT][4],
+                                               const bf16* wa, const bf16* wb,
+                                               const float* bias,
+                                               bool round_mm,
+                                               bool round_stream, int lane) {
+  const int t = lane & 3;
+  uint32_t a[KT][4];
+  float acc[NT][4];
+  to_afrag(a, h, [](float v) { return activate<ELU>(v); });
+  mm_layer(acc, a, wa, lane, true);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v = acc[nt][i] + bias[nt * 8 + 2 * t + (i & 1)];
+      acc[nt][i] = round_mm ? round_bf16(v) : v;
+    }
+  }
+  to_afrag(a, acc, [](float v) { return activate<ELU>(v); });
+  mm_layer(acc, a, wb, lane, true);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float r = acc[nt][i] + bias[HID + nt * 8 + 2 * t + (i & 1)];
+      if (round_mm) r = round_bf16(r);
+      float v = h[nt][i] + r;
+      h[nt][i] = round_stream ? round_bf16(v) : v;
+    }
+  }
 }
 
 // n_blocks pre-activation residual blocks, h += Wb act(Wa act(h) + ba) + bb.
 // wpack: [2 * n_blocks][HID][HID] bf16 ([out][in]); bpack: [2 * n_blocks][HID]
-// f32. Every thread of the block must call this (it synchronises).
+// f32. The caller has already issued fetch_block(s, 0, wpack, bpack, 0)
+// (when n_blocks > 0), so block 0 streams in while it prepares the input;
+// ring buffer 1 may hold other data (a head or input Dense) until the first
+// iteration's barrier. Every thread of the block must call this (it
+// synchronises).
+template <bool ELU>
 __device__ __forceinline__ void run_chain(float (&h)[NT][4], const ChainSmem& s,
                                           const bf16* wpack, const float* bpack,
                                           int n_blocks, bool round_mm,
-                                          bool round_stream, bool elu,
-                                          int lane) {
-  const int t = lane & 3;
-  uint32_t a[KT][4];
-  float acc[NT][4];
+                                          bool round_stream, int lane) {
   for (int blk = 0; blk < n_blocks; ++blk) {
-    __syncthreads();
-    stage_rows(s.slot0, wpack + (size_t)(2 * blk) * HID * HID, HID, HID);
-    stage_rows(s.slot1, wpack + (size_t)(2 * blk + 1) * HID * HID, HID, HID);
-    stage_f32(s.bias, bpack + (size_t)(2 * blk) * HID, 2 * HID, 2 * HID);
-    __syncthreads();
-
-    to_afrag(a, h, [elu](float v) { return activate(v, elu); });
-    mm_layer(acc, a, s.slot0, lane, true);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float v = acc[nt][i] + s.bias[nt * 8 + 2 * t + (i & 1)];
-        acc[nt][i] = round_mm ? round_bf16(v) : v;
-      }
+    const int cur = blk & 1;
+    __syncthreads();          // everyone is done with the other buffer
+    if (blk + 1 < n_blocks) {
+      fetch_block(s, cur ^ 1, wpack, bpack, blk + 1);
+      cp_async_wait<1>();     // block `blk` landed (this thread's copies)
+    } else {
+      cp_async_wait<0>();
     }
-    to_afrag(a, acc, [elu](float v) { return activate(v, elu); });
-    mm_layer(acc, a, s.slot1, lane, true);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float r = acc[nt][i] + s.bias[HID + nt * 8 + 2 * t + (i & 1)];
-        if (round_mm) r = round_bf16(r);
-        float v = h[nt][i] + r;
-        h[nt][i] = round_stream ? round_bf16(v) : v;
-      }
-    }
+    __syncthreads();          // ... and everyone else's
+    residual_block<ELU>(h, s.layer(cur, 0), s.layer(cur, 1), s.bias(cur),
+                        round_mm, round_stream, lane);
   }
 }
 
@@ -196,7 +257,7 @@ __device__ __forceinline__ void run_readout(const float (&h)[NT][4],
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    float v = o[i] + s.bias[2 * HID + 2 * t + (i & 1)];
+    float v = o[i] + s.bro[2 * t + (i & 1)];
     o[i] = round_mm ? round_bf16(v) : v;
   }
 }

@@ -28,7 +28,7 @@ constexpr int LDG = HID + 8;                             // f32 scratch row
 constexpr int WARP_SCRATCH = ROWS_PER_WARP * LDG * 4;    // bytes per warp
 constexpr int SWG_SMEM = CHAIN_SMEM + HID * 4 + WARPS * WARP_SCRATCH;
 
-template <bool HEAD_INSIDE>
+template <bool HEAD_INSIDE, bool ELU>
 __global__ void __launch_bounds__(THREADS)
 swg_kernel(const float* __restrict__ coords, const float* __restrict__ pos,
            const float* __restrict__ dirs, const bf16* __restrict__ h0geo,
@@ -37,7 +37,7 @@ swg_kernel(const float* __restrict__ coords, const float* __restrict__ pos,
            int n_freq, float base_freq, const bf16* __restrict__ wpack,
            const float* __restrict__ bpack, int n_blocks,
            const bf16* __restrict__ wro, const float* __restrict__ bro,
-           int out_dim, int n, bool fast, bool elu, float* __restrict__ out) {
+           int out_dim, int n, bool fast, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   ChainSmem s(smem);
   float* hb = reinterpret_cast<float*>(smem + CHAIN_SMEM);
@@ -48,10 +48,13 @@ swg_kernel(const float* __restrict__ coords, const float* __restrict__ pos,
   const int row_base = blockIdx.x * ROWS_PER_BLOCK + warp * ROWS_PER_WARP;
   const int r0 = row_base + g, r1 = r0 + 8;
 
+  // block 0's weights stream into ring buffer 0 during the head and gather
+  if (n_blocks > 0) fetch_block(s, 0, wpack, bpack, 0);
   stage_readout(s, wro, bro, out_dim);
   float h[NT][4];
   if (HEAD_INSIDE) {
-    stage_rows(s.slot0, head_t, HID, HID);
+    // the head sits in ring buffer 1, free until run_chain's first barrier
+    stage_rows(s.layer(1, 0), head_t, HID, HID);
     stage_f32(hb, head_b, HID, HID);
     __syncthreads();
     // ---- encodings: [16 queries][128] bf16, column f*6*n_freq + k*6 + ch
@@ -87,7 +90,7 @@ swg_kernel(const float* __restrict__ coords, const float* __restrict__ pos,
       a[kt][3] = *reinterpret_cast<const uint32_t*>(e + (g + 8) * LDW + 8);
     }
     __syncwarp();
-    mm_layer(h, a, s.slot0, lane, true);
+    mm_layer(h, a, s.layer(1, 0), lane, true);
   } else {
     // head given: h0_geo [n][128] bf16 (bias already folded in)
 #pragma unroll
@@ -146,7 +149,7 @@ swg_kernel(const float* __restrict__ coords, const float* __restrict__ pos,
     }
   }
 
-  run_chain(h, s, wpack, bpack, n_blocks, fast, fast, elu, lane);
+  run_chain<ELU>(h, s, wpack, bpack, n_blocks, fast, fast, lane);
 
   __syncthreads();   // readout staged at entry; chain may have no blocks
   float o[4];
@@ -162,21 +165,20 @@ swg_kernel(const float* __restrict__ coords, const float* __restrict__ pos,
   }
 }
 
-template <bool HEAD_INSIDE>
+template <bool HEAD_INSIDE, bool ELU>
 static int launch(const float* coords, const float* pos, const float* dirs,
                   const void* h0geo, const void* img, int img_h, int img_w,
                   const void* head_t, const float* head_b, int n_freq,
                   float base_freq, const void* wpack, const float* bpack,
                   int n_blocks, const void* wro, const float* bro, int out_dim,
-                  int n, int fast, int elu, float* out, cudaStream_t stream) {
-  int err = enable_smem((const void*)swg_kernel<HEAD_INSIDE>, SWG_SMEM);
+                  int n, int fast, float* out, cudaStream_t stream) {
+  int err = enable_smem((const void*)swg_kernel<HEAD_INSIDE, ELU>, SWG_SMEM);
   if (err) return err;
   const int grid = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  swg_kernel<HEAD_INSIDE><<<grid, THREADS, SWG_SMEM, stream>>>(
+  swg_kernel<HEAD_INSIDE, ELU><<<grid, THREADS, SWG_SMEM, stream>>>(
       coords, pos, dirs, (const bf16*)h0geo, (const bf16*)img, img_h, img_w,
       (const bf16*)head_t, head_b, n_freq, base_freq, (const bf16*)wpack,
-      bpack, n_blocks, (const bf16*)wro, bro, out_dim, n, fast != 0, elu != 0,
-      out);
+      bpack, n_blocks, (const bf16*)wro, bro, out_dim, n, fast != 0, out);
   return (int)cudaGetLastError();
 }
 
@@ -194,11 +196,9 @@ extern "C" int swg_launch(int head_inside, const float* coords,
                           const float* bpack, int n_blocks, const void* wro,
                           const float* bro, int out_dim, int n, int fast,
                           int elu, float* out, void* stream) {
-  if (head_inside)
-    return launch<true>(coords, pos, dirs, h0geo, img, img_h, img_w, head_t,
-                        head_b, n_freq, base_freq, wpack, bpack, n_blocks, wro,
-                        bro, out_dim, n, fast, elu, out, (cudaStream_t)stream);
-  return launch<false>(coords, pos, dirs, h0geo, img, img_h, img_w, head_t,
-                       head_b, n_freq, base_freq, wpack, bpack, n_blocks, wro,
-                       bro, out_dim, n, fast, elu, out, (cudaStream_t)stream);
+  auto* fn = head_inside ? (elu ? launch<true, true> : launch<true, false>)
+                         : (elu ? launch<false, true> : launch<false, false>);
+  return fn(coords, pos, dirs, h0geo, img, img_h, img_w, head_t, head_b,
+            n_freq, base_freq, wpack, bpack, n_blocks, wro, bro, out_dim, n,
+            fast, out, (cudaStream_t)stream);
 }

@@ -9,7 +9,6 @@ and parameters to it. Parameters themselves stay float32.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -153,6 +152,3 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     y = torch.einsum("bhwc,ho->bowc", x, wh)
     return torch.einsum("bowc,wp->bopc", y, ww)
 
-
-def glorot_std(fan_in: int, fan_out: int) -> float:
-    return math.sqrt(2.0 / (fan_in + fan_out))

@@ -91,6 +91,7 @@ def resmlp_rows(x: torch.Tensor, weights: Sequence[torch.Tensor],
                             skip_input, fast)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
     _check(x.dim() == 2 and x.is_contiguous(), "x must be contiguous [N, D]")
+    _check(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
     _check(x.dtype in (torch.float32, torch.bfloat16), f"x dtype {x.dtype}")
     _act(activation)
     n_w = (0 if skip_input else 2) + 4 * n_blocks + (2 if readout else 0)
@@ -106,7 +107,11 @@ def resmlp_rows(x: torch.Tensor, weights: Sequence[torch.Tensor],
     else:
         w0, b0 = weights[0], weights[1].float().contiguous()
         _check(tuple(w0.shape) == (x.shape[1], HIDDEN), "w0 must be [D_in, 128]")
-        w0t, d_in, idx = w0.t().contiguous(), x.shape[1], 2
+        d_in, idx = x.shape[1], 2
+        d_pad = -(-d_in // HIDDEN) * HIDDEN
+        w0t = torch.zeros((HIDDEN, d_pad), dtype=torch.bfloat16,
+                          device=x.device)
+        w0t[:, :d_in] = w0.t()
     blocks = weights[idx:idx + 4 * n_blocks]
     for i, w in enumerate(blocks):
         _check(tuple(w.shape) == ((HIDDEN, HIDDEN) if i % 2 == 0 else (HIDDEN,)),

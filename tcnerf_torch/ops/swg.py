@@ -21,6 +21,7 @@ devices: the CUDA kernel gathers directly and cannot overflow.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -88,6 +89,13 @@ def head_permutation(n_freq: int) -> np.ndarray:
     return np.asarray(cols)
 
 
+@functools.lru_cache(maxsize=None)
+def _head_permutation_on(n_freq: int, device: torch.device) -> torch.Tensor:
+    # cached: a host-to-device copy at every launch would synchronise the
+    # stream and keep the host from running ahead of the card
+    return torch.as_tensor(head_permutation(n_freq), device=device)
+
+
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"swg_field_rows: {msg}")
@@ -139,7 +147,7 @@ def swg_field_rows(img: torch.Tensor, coords: torch.Tensor,
                    and t.device == dev, f"{name} must be contiguous f32 [N, 3]")
         _check(head_k.shape == (12 * n_freq, HIDDEN) and head_b.shape == (HIDDEN,),
                "head_k must be [12 * n_freq, 128], head_b [128]")
-        perm = torch.as_tensor(head_permutation(n_freq), device=dev)
+        perm = _head_permutation_on(n_freq, dev)
         head_t = torch.zeros((HIDDEN, HIDDEN), dtype=torch.bfloat16, device=dev)
         head_t[:, :12 * n_freq] = head_k[perm].t().to(torch.bfloat16)
         hb = head_b.float().contiguous()

@@ -1,6 +1,7 @@
 """tcnerf_torch kernel modules (ops/resmlp.py, ops/swg.py) against the JAX
-Pallas kernels in interpret mode, and (marked `gpu`) the CUDA kernels
-against their plain versions on the card.
+Pallas kernels in interpret mode. The CUDA kernels against their plain
+versions on the card are in test_torch_gpu.py, which also holds the input
+helpers (it imports no JAX).
 
 Inputs are made with numpy from a seed and fed to both sides.
 """
@@ -16,36 +17,9 @@ from tcnerf.ops.pallas.swg import prepare_image, swg_rows
 from tcnerf_torch.ops.resmlp import RESMLP, resmlp_plain, resmlp_rows
 from tcnerf_torch.ops.swg import (SWG, encode_head, swg_field_plain,
                                   swg_field_rows)
+from test_torch_gpu import RESMLP_CASES, _chain, _close, _swg_inputs, _tt
 
 HID = 128
-
-
-def _chain(rng, n_blocks, d_in=None, out_dim=None):
-    flat = [] if d_in is None else [rng.normal(size=(d_in, HID)) / np.sqrt(d_in),
-                                    rng.normal(size=(HID,)) * 0.1]
-    for _ in range(n_blocks):
-        flat += [rng.normal(size=(HID, HID)) * 0.09, rng.normal(size=(HID,)) * 0.1,
-                 rng.normal(size=(HID, HID)) * 0.09, rng.normal(size=(HID,)) * 0.1]
-    if out_dim:
-        flat += [rng.normal(size=(HID, out_dim)) * 0.09,
-                 rng.normal(size=(out_dim,)) * 0.1]
-    return [w.astype(np.float32) for w in flat]
-
-
-def _close(got, want, tol):
-    got = np.asarray(got, np.float32)
-    want = np.asarray(want, np.float32)
-    scale = float(np.abs(want).max())
-    np.testing.assert_allclose(got, want, atol=tol * scale, rtol=tol)
-
-
-def _tt(a, dtype=torch.float32):
-    return torch.as_tensor(np.asarray(a, np.float32)).to(dtype)
-
-
-# (readout, skip_input, fast)
-RESMLP_CASES = [(False, True, False), (True, False, False),
-                (False, True, True), (True, False, True)]
 
 
 @pytest.mark.parametrize("readout,skip_input,fast", RESMLP_CASES)
@@ -82,22 +56,6 @@ def test_resmlp_rows_takes_plain_version_on_cpu():
     want = resmlp_plain(x, flat, 1, readout=True, skip_input=True)
     assert torch.equal(got, want)
     assert RESMLP.counts["resmlp_rows"] == before   # no kernel launched
-
-
-def _swg_inputs(rng, n, h=16, w=24, n_blocks=2, margin=0.0):
-    """margin > 0 puts queries outside the image (clamped). The TPU fast
-    path packs both 11-bit fractions into one f32 and cannot carry ay == 1
-    (a query clamped to the last row), so its parity runs inside."""
-    img = rng.normal(size=(h, w, HID)).astype(np.float32)
-    coords = np.stack([rng.uniform(-margin, w - 1 + margin, n),
-                       rng.uniform(-margin, h - 1 + margin, n)],
-                      -1).astype(np.float32)
-    pos = rng.normal(size=(n, 3)).astype(np.float32) * 0.5
-    dirs = rng.normal(size=(n, 3)).astype(np.float32) * 0.5
-    head_k = (rng.normal(size=(120, HID)) * 0.05).astype(np.float32)
-    head_b = (rng.normal(size=(HID,)) * 0.1).astype(np.float32)
-    flat = _chain(rng, n_blocks, None, 4)
-    return img, coords, pos, dirs, head_k, head_b, flat
 
 
 @pytest.mark.parametrize("fast", [False, True])
@@ -143,59 +101,3 @@ def test_swg_field_rows_takes_plain_version_on_cpu():
     before = sum(SWG.counts.values())
     assert torch.equal(swg_field_rows(*args), swg_field_plain(*args))
     assert sum(SWG.counts.values()) == before
-
-
-# ------------------------------------------------------------ on the card
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run on the chip)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("readout,skip_input,fast", RESMLP_CASES)
-def test_resmlp_kernel_matches_plain(cuda, readout, skip_input, fast):
-    """Kernel vs plain on the card, bf16 weights: 2e-2 x max|ref| (bf16
-    operands; roundings can differ in the last bit)."""
-    rng = np.random.default_rng(4)
-    d_in = None if skip_input else 379
-    flat = [_tt(w, torch.bfloat16).to(cuda)
-            for w in _chain(rng, 3, d_in, 4 if readout else None)]
-    x = _tt(rng.normal(size=(1000, HID if skip_input else d_in)),
-            torch.bfloat16).to(cuda)
-    before = RESMLP.counts["resmlp_rows"]
-    got = resmlp_rows(x, flat, 3, readout=readout, skip_input=skip_input,
-                      fast=fast)
-    torch.cuda.synchronize()
-    assert RESMLP.counts["resmlp_rows"] == before + 1
-    want = resmlp_plain(x, flat, 3, readout=readout, skip_input=skip_input,
-                        fast=fast)
-    _close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("head_inside", [True, False])
-def test_swg_kernel_matches_plain(cuda, head_inside):
-    """K2 (head inside, bf16 stream) and K3 (head given, f32 stream) vs the
-    plain version: 2e-2 x max|ref| (bf16 operands)."""
-    rng = np.random.default_rng(5)
-    n = 3000
-    img, coords, pos, dirs, head_k, head_b, flat = _swg_inputs(
-        rng, n, 48, 64, n_blocks=6, margin=2.0)
-    bf = torch.bfloat16
-    timg = _tt(img, bf).to(cuda)
-    tflat = [_tt(x, bf).to(cuda) for x in flat]
-    tc, tp, td = (_tt(a).to(cuda) for a in (coords, pos, dirs))
-    hk, hb = _tt(head_k).to(cuda), _tt(head_b).to(cuda)
-    if head_inside:
-        args = (timg, tc, tp, td, tflat, 6, hk, hb)
-        kw = {}
-    else:
-        args = (timg, tc, None, None, tflat, 6)
-        kw = dict(h0_geo=encode_head(tp, td, hk, hb, bf), fast=False)
-    got = swg_field_rows(*args, **kw)
-    torch.cuda.synchronize()
-    want = swg_field_plain(*args, **kw)
-    _close(got.cpu().numpy(), want.cpu().numpy(), 2e-2)

@@ -155,11 +155,17 @@ def test_swg_render_chunk_matches_jax(scene, dtype, fast):
     with torch.no_grad():
         prepared = fused.swg_prepare(_port(scene), t[2], _t(scene["feats"]),
                                      n_blocks=2, dtype=dtype)
+        draws = dict(u_coarse=_t(jax.random.uniform(k_c, (1, R, S))),
+                     u_fine=_t(jax.random.uniform(k_f, (1, R, S))))
         got = fused.swg_render_chunk(
             prepared, t[0], t[1], t[3], t[4], n_samples=S, n_blocks=2,
-            fast=fast, u_coarse=_t(jax.random.uniform(k_c, (1, R, S))),
-            u_fine=_t(jax.random.uniform(k_f, (1, R, S))))
+            fast=fast, **draws)
+        # the single-shot form is prepare + one chunk
+        once = fused.swg_render_rays(
+            _port(scene), t[0], t[1], t[2], t[3], t[4], _t(scene["feats"]),
+            n_samples=S, n_blocks=2, fast=fast, dtype=dtype, **draws)
     assert got[4] == 0 and sum(SWG.counts.values()) == before
+    assert all(torch.equal(a, b) for a, b in zip(got[:4], once[:4]))
     for g, w in zip(got[:4], want[:4]):
         _close(g.float(), w, rtol=3e-2, atol=2e-2)
 
