@@ -5,7 +5,10 @@
     python3 chip_smoke.py --kernels   # build + kernel-vs-plain checks only
 
 It builds the port's CUDA kernels from `tcnerf_torch/csrc`, holds every
-kernel mode against its plain PyTorch version at main-path shapes, serves a
+kernel mode against its plain PyTorch version at main-path shapes, runs the
+three gather-probe tools (`tcnerf_torch/tools/bench_gather{2,3,4}.py`) at
+the reference's shapes and holds their kernels (K4-K13) against their plain
+versions bit for bit, serves a
 full 480x640 view of the full-width `nerf_1_view_wo` model (seeded random
 weights) through `render_view` on the fused swg path, the flax
 (`pallas_mlp`) path and the f32 swg path, checks that each path launched its
@@ -80,11 +83,12 @@ def compare(name, got, want, tol, note):
 
 def phase_build():
     from tcnerf_torch.ops.cuda_lib import build_all
+    from tcnerf_torch.ops.gather import GATHER
     from tcnerf_torch.ops.resmlp import RESMLP
     from tcnerf_torch.ops.swg import SWG
 
     t0 = time.perf_counter()
-    reports = build_all([RESMLP, SWG])
+    reports = build_all([RESMLP, SWG, GATHER])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({len(reports)} nvcc processes in parallel)")
     for source, text in reports.items():
@@ -202,6 +206,51 @@ def phase_kernels(dev, card):
     return results
 
 
+def phase_gather(dev, card, launches):
+    """The three gather-probe tools at the reference's shapes (their main
+    path: counts set to 0 before each tool, read after), then each probe's
+    kernel against its plain version, bit for bit (tolerance 0: a gather
+    moves bits, and the one-hot product is exact), timed beside the plain
+    version and the one PyTorch call that computes the same function."""
+    from tcnerf_torch.ops.gather import GATHER
+    from tcnerf_torch.tools import bench_gather2, bench_gather3, bench_gather4
+    from tcnerf_torch.tools.common import check_equal
+
+    results = {}
+    for tool in (bench_gather2, bench_gather3, bench_gather4):
+        name = tool.__name__.rsplit(".", 1)[1]
+        inp = tool.make_inputs(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = tool.run(inp, dev)
+        counts = read_counts()
+        print(f"gather {name}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{counts} [{card}]")
+        for case in tool.cases(inp):
+            tag = f"{case.k} {name} {case.probe}"
+            n_launch = res[case.probe]["launches"]
+            if n_launch == 0 or counts.get(case.kernel, 0) == 0:
+                raise AssertionError(f"{tag}: {case.kernel} never launched")
+            err = check_equal(tag, case.call(), case.plain())
+            print(f"check {tag} {case.kernel} ({case.mode}): max_abs_err="
+                  f"{err:.6g} limit=0 (bit-exact) OK")
+            r = dict(err=err, launches=n_launch, name=case.kernel,
+                     source=f"tcnerf_torch/csrc/{GATHER.source}",
+                     replaces=tool.TPU_KERNELS[case.k],
+                     mode=f"{name} {case.probe}: {case.mode}",
+                     ms=time_ms(case.call, 10),
+                     plain_ms=time_ms(case.plain, 3),
+                     library_ms=time_ms(case.library, 10),
+                     bound=bound_ms(case.flops, case.nbytes))
+            print(f"time {tag}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
+                  f"ms, library {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound'][0]:.4f} ms by {r['bound'][1]}) [{card}]")
+            results.setdefault(case.k, r)       # K7's row: P1, f32
+        del inp
+    launches.update({k: r["launches"] for k, r in results.items()})
+    return results
+
+
 def phase_sweep(dev, card):
     """K1 (chain half) and K2 (fine stage) times at 1,048,576 rows over the
     number of residual blocks: the intercept is the row I/O, gather and head,
@@ -247,16 +296,19 @@ def build_model(dev, dtype=None, pallas_mlp=False):
 
 
 def reset_counts():
+    from tcnerf_torch.ops.gather import GATHER
     from tcnerf_torch.ops.resmlp import RESMLP
     from tcnerf_torch.ops.swg import SWG
     RESMLP.counts.clear()
     SWG.counts.clear()
+    GATHER.counts.clear()
 
 
 def read_counts():
+    from tcnerf_torch.ops.gather import GATHER
     from tcnerf_torch.ops.resmlp import RESMLP
     from tcnerf_torch.ops.swg import SWG
-    return {**RESMLP.counts, **SWG.counts}
+    return {**RESMLP.counts, **SWG.counts, **GATHER.counts}
 
 
 def timed(fn):
@@ -480,27 +532,30 @@ def main(argv) -> int:
     print(card)
     phase_build()
     kres = phase_kernels(dev, card)
+    launches = {}
     if "--kernels" in argv:
+        phase_gather(dev, card, launches)
         return 0
     phase_sweep(dev, card)
     src_cfg, tgt_cfg = camera_ring(2, height=H, width=W)
     src = np.random.default_rng(0).integers(0, 256, (H, W, 3), dtype=np.uint8)
     scene = (src, src_cfg, tgt_cfg)
-    launches = {}
     phase_serve(dev, card, scene, launches)
     phase_flax(dev, card, scene, launches)
     phase_f32(dev, card, scene, launches)
+    # after the serving phases, which thus run as they did before it existed
+    kres.update(phase_gather(dev, card, launches))
     rows = []
-    for k, meta in KERNELS.items():
-        r = kres[k]
+    for k, r in kres.items():          # K1-K3, then K4-K13 from the tools
+        meta = KERNELS.get(k, r)
         rows.append({"name": meta["name"], "route": "cuda",
                      "source": meta["source"], "replaces": meta["replaces"],
                      "mode": meta["mode"], "launches": launches[k],
                      "max_abs_err": r["err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],
-                     # no single PyTorch call computes the fused chain
-                     "library_ms": None})
+                     # no single PyTorch call computes K1-K3's fused chain
+                     "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from tcnerf_torch.ops.gather import (GATHER, gather_lanes, gather_lanes_plain,
+                                     gather_onehot, gather_onehot_plain,
+                                     gather_rows, gather_rows_plain,
+                                     gather_rows_window)
 from tcnerf_torch.ops.resmlp import RESMLP, resmlp_plain, resmlp_rows
 from tcnerf_torch.ops.swg import (SWG, encode_head, swg_field_plain,
                                   swg_field_rows)
@@ -143,3 +147,95 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                        flat, 1, h0_geo=torch.zeros((2, HID), device=cuda,
                                                    dtype=torch.bfloat16))
     assert sum(SWG.counts.values()) == before
+
+
+def _edge_idx(rng, n, rows):
+    """n indices in [0, rows), the first and last row among them."""
+    idx = rng.integers(0, rows, size=n).astype(np.int32)
+    idx[:2] = (0, rows - 1)
+    idx[-2:] = (rows - 1, 0)
+    return idx
+
+
+def _launch(name, fn, *args):
+    before = GATHER.counts[name]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert GATHER.counts[name] == before + 1
+    return out
+
+
+# (kernel, table rows, row width); n = 1000 is not a multiple of any tile
+ROW_CASES = [(gather_rows, 3000, 512), (gather_rows, 5, 8),
+             (gather_rows_window, 2048, 512), (gather_rows_window, 2048, 128),
+             (gather_rows_window, 100, 24)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fn,rows,width", ROW_CASES,
+                         ids=lambda v: getattr(v, "__name__", str(v)))
+def test_gather_rows_kernels_match_plain(cuda, fn, rows, width, dtype):
+    """G1 and G2 against index_select, bit for bit (a gather moves bits)."""
+    rng = np.random.default_rng(7)
+    table = _tt(rng.normal(size=(rows, width)), dtype).to(cuda)
+    idx = torch.as_tensor(_edge_idx(rng, 1000, rows)).to(cuda)
+    got = _launch(fn.__name__, fn, table, idx)
+    assert torch.equal(got, gather_rows_plain(table, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_lanes_kernel_matches_plain(cuda, dtype):
+    """G3 against torch.gather, bit for bit; lanes 0 and 127 included."""
+    rng = np.random.default_rng(8)
+    src = _tt(rng.normal(size=(1000, HID)), dtype).to(cuda)
+    idx = np.stack([_edge_idx(rng, HID, HID) for _ in range(1000)])
+    idx = torch.as_tensor(idx).to(cuda)
+    got = _launch("gather_lanes", gather_lanes, src, idx)
+    assert torch.equal(got, gather_lanes_plain(src, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [512, 2048, 48])
+@pytest.mark.parametrize("column", [False, True])
+def test_gather_onehot_kernel_matches_plain(cuda, rows, column):
+    """G4 against its plain version and index_select, bit for bit: each
+    output element is one product 1.0 * x plus zeros in f32. 48 rows end in
+    a partial k-slice."""
+    rng = np.random.default_rng(9)
+    win = _tt(rng.normal(size=(rows, HID)), torch.bfloat16).to(cuda)
+    idx = torch.as_tensor(_edge_idx(rng, 1000, rows)).to(cuda)
+    if column:
+        idx = idx[:, None].contiguous()
+    got = _launch("gather_onehot", gather_onehot, win, idx)
+    assert torch.equal(got, gather_onehot_plain(win, idx))
+    assert torch.equal(got, win.index_select(0, idx.reshape(-1).long()))
+
+
+@pytest.mark.gpu
+def test_gather_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    """Nothing falls back to the plain version; no launch is counted."""
+    bf = torch.bfloat16
+    idx = torch.zeros(64, dtype=torch.int32, device=cuda)
+    before = dict(GATHER.counts)
+    bad = [
+        (gather_rows, torch.zeros((8, 4), dtype=bf, device=cuda), idx),
+        (gather_rows, torch.zeros((8, 8), dtype=bf, device=cuda), idx.long()),
+        (gather_rows, torch.zeros((8, 8), dtype=torch.float16, device=cuda),
+         idx),
+        (gather_rows_window, torch.zeros((16384, 8), dtype=bf, device=cuda),
+         idx),
+        (gather_rows_window, torch.zeros((8, 16), dtype=bf, device=cuda)[:, :8],
+         idx),
+        (gather_lanes, torch.zeros((64, 64), dtype=bf, device=cuda),
+         torch.zeros((64, 64), dtype=torch.int32, device=cuda)),
+        (gather_lanes, torch.zeros((64, HID), dtype=bf, device=cuda),
+         torch.zeros((64, HID), dtype=torch.int32)),
+        (gather_onehot, torch.zeros((512, HID), device=cuda), idx),
+        (gather_onehot, torch.zeros((40, HID), dtype=bf, device=cuda), idx),
+    ]
+    for fn, data, ix in bad:
+        with pytest.raises(ValueError):
+            fn(data, ix)
+    assert dict(GATHER.counts) == before
