@@ -20,49 +20,16 @@ Imports torch and the port only.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# published peaks of one H100 SXM (dense): bf16 tensor cores, HBM3
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
-
 H, W = 480, 640
 HID = 128
 CHUNK = 8192
 N_SAMPLES = 64
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def time_ms(fn, iters: int, warmup: int = 1) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def compare(name, got, want, tol, note):
@@ -122,6 +89,7 @@ def phase_kernels(dev, card):
     from tcnerf_torch.ops.resmlp import resmlp_plain, resmlp_rows
     from tcnerf_torch.ops.swg import (encode_head, swg_field_plain,
                                       swg_field_rows)
+    from tcnerf_torch.tools.common import bound_ms, time_ms
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
@@ -137,8 +105,10 @@ def phase_kernels(dev, card):
     flops = 2 * n * 6 * HID * HID
     nbytes = 2 * n * HID * 2
     results["K1"] = dict(
-        err=err, ms=time_ms(lambda: resmlp_rows(x, wts, 3, skip_input=True), 10),
-        plain_ms=time_ms(lambda: resmlp_plain(x, wts, 3, skip_input=True), 3),
+        err=err,
+        ms=time_ms(lambda: resmlp_rows(x, wts, 3, skip_input=True), dev, 10),
+        plain_ms=time_ms(lambda: resmlp_plain(x, wts, 3, skip_input=True),
+                         dev, 3),
         bound=bound_ms(flops, nbytes))
     del x, got, want
 
@@ -150,8 +120,8 @@ def phase_kernels(dev, card):
     want = resmlp_plain(x, wts, 6, readout=True)
     err = compare("K1 resmlp_rows fused_field form [524288x379 -> 4] bf16",
                   got, want, 2e-2, "bf16 output rounding, f32 stream")
-    ms = time_ms(lambda: resmlp_rows(x, wts, 6, readout=True), 10)
-    pms = time_ms(lambda: resmlp_plain(x, wts, 6, readout=True), 3)
+    ms = time_ms(lambda: resmlp_rows(x, wts, 6, readout=True), dev, 10)
+    pms = time_ms(lambda: resmlp_plain(x, wts, 6, readout=True), dev, 3)
     b, by = bound_ms(2 * n * (379 * HID + 12 * HID * HID + HID * 4),
                      n * (379 + 4) * 2)
     print(f"time K1 fused_field form: {ms:.4f} ms (plain {pms:.4f} ms, "
@@ -179,8 +149,8 @@ def phase_kernels(dev, card):
     flops = 2 * n * (120 * HID + 12 * HID * HID + HID * 4)
     nbytes = n * (2 * 4 + 6 * 4 + 4 * 4) + H * W * HID * 2
     results["K2"] = dict(
-        err=err, ms=time_ms(lambda: swg_field_rows(*args), 10),
-        plain_ms=time_ms(lambda: swg_field_plain(*args), 3),
+        err=err, ms=time_ms(lambda: swg_field_rows(*args), dev, 10),
+        plain_ms=time_ms(lambda: swg_field_plain(*args), dev, 3),
         bound=bound_ms(flops, nbytes))
     del got, want
 
@@ -196,9 +166,9 @@ def phase_kernels(dev, card):
     results["K3"] = dict(
         err=err,
         ms=time_ms(lambda: swg_field_rows(img, coords, None, None, wts, 6,
-                                          **kw), 10),
+                                          **kw), dev, 10),
         plain_ms=time_ms(lambda: swg_field_plain(img, coords, None, None,
-                                                 wts, 6, **kw), 3),
+                                                 wts, 6, **kw), dev, 3),
         bound=bound_ms(flops, nbytes))
     for k, r in results.items():
         print(f"time {k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
@@ -208,13 +178,14 @@ def phase_kernels(dev, card):
 
 def phase_gather(dev, card, launches):
     """The three gather-probe tools at the reference's shapes (their main
-    path: counts set to 0 before each tool, read after), then each probe's
-    kernel against its plain version, bit for bit (tolerance 0: a gather
-    moves bits, and the one-hot product is exact), timed beside the plain
-    version and the one PyTorch call that computes the same function."""
+    path: counts set to 0 before each tool, read after). Each tool holds
+    every probe's kernel against its plain version, bit for bit (tolerance
+    0: a gather moves bits, and the one-hot product is exact); each kernel
+    is then timed beside its plain version and the one PyTorch call that
+    computes the same function."""
     from tcnerf_torch.ops.gather import GATHER
     from tcnerf_torch.tools import bench_gather2, bench_gather3, bench_gather4
-    from tcnerf_torch.tools.common import check_equal
+    from tcnerf_torch.tools.common import bound_ms, time_ms
 
     results = {}
     for tool in (bench_gather2, bench_gather3, bench_gather4):
@@ -228,23 +199,24 @@ def phase_gather(dev, card, launches):
               f"{counts} [{card}]")
         for case in tool.cases(inp):
             tag = f"{case.k} {name} {case.probe}"
-            n_launch = res[case.probe]["launches"]
-            if n_launch == 0 or counts.get(case.kernel, 0) == 0:
+            n_launch, err = (res[case.probe]["launches"],
+                             res[case.probe]["max_abs_err"])
+            if n_launch == 0:
                 raise AssertionError(f"{tag}: {case.kernel} never launched")
-            err = check_equal(tag, case.call(), case.plain())
             print(f"check {tag} {case.kernel} ({case.mode}): max_abs_err="
                   f"{err:.6g} limit=0 (bit-exact) OK")
             r = dict(err=err, launches=n_launch, name=case.kernel,
                      source=f"tcnerf_torch/csrc/{GATHER.source}",
                      replaces=tool.TPU_KERNELS[case.k],
                      mode=f"{name} {case.probe}: {case.mode}",
-                     ms=time_ms(case.call, 10),
-                     plain_ms=time_ms(case.plain, 3),
-                     library_ms=time_ms(case.library, 10),
+                     ms=time_ms(case.call, dev, 10),
+                     plain_ms=time_ms(case.plain, dev, 3),
+                     library_ms=time_ms(case.library, dev, 10),
                      bound=bound_ms(case.flops, case.nbytes))
             print(f"time {tag}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
                   f"ms, library {r['library_ms']:.4f} ms, bound "
-                  f"{r['bound'][0]:.4f} ms by {r['bound'][1]}) [{card}]")
+                  f"{r['bound'][0]:.4f} ms by {r['bound'][1]}, bytes alone "
+                  f"{bound_ms(0., case.nbytes)[0]:.4f} ms) [{card}]")
             results.setdefault(case.k, r)       # K7's row: P1, f32
         del inp
     launches.update({k: r["launches"] for k, r in results.items()})
@@ -258,6 +230,7 @@ def phase_sweep(dev, card):
     import torch
     from tcnerf_torch.ops.resmlp import resmlp_rows
     from tcnerf_torch.ops.swg import swg_field_rows
+    from tcnerf_torch.tools.common import time_ms
 
     gen = torch.Generator(device=dev).manual_seed(0)
     n = CHUNK * 2 * N_SAMPLES
@@ -273,9 +246,9 @@ def phase_sweep(dev, card):
     for nb in (0, 1, 2, 3, 6):
         w1 = random_chain(gen, nb, None, 0, dev)
         w2 = random_chain(gen, nb, None, 4, dev)
-        k1 = time_ms(lambda: resmlp_rows(x, w1, nb, skip_input=True), 10)
+        k1 = time_ms(lambda: resmlp_rows(x, w1, nb, skip_input=True), dev, 10)
         k2 = time_ms(lambda: swg_field_rows(img, coords, pos, dirs, w2, nb,
-                                            head_k, head_b), 10)
+                                            head_k, head_b), dev, 10)
         print(f"sweep n_blocks={nb}: K1 {k1:.4f} ms, K2 {k2:.4f} ms [{card}]")
 
 
@@ -526,9 +499,10 @@ def main(argv) -> int:
     sys.path.insert(0, str(REPO))
     from tcnerf_torch.data.cameras import camera_ring
     from tcnerf_torch.device import resolve_device
+    from tcnerf_torch.tools.common import device_line
 
     dev = resolve_device("cuda")
-    card = card_line()
+    card = device_line(dev)
     print(card)
     phase_build()
     kres = phase_kernels(dev, card)

@@ -26,7 +26,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.gather import gather_rows, gather_rows_plain, gather_rows_window
-from .common import (KernelCase, base_parser, check_equal, device_line,
+from .common import (KernelCase, base_parser, check_case, device_line,
                      nbytes, probe, to_torch)
 
 ROWS, C = 480 * 640, 512          # corner-image rows: 4 x 128 bf16 = 1 KB
@@ -39,15 +39,15 @@ TPU_KERNELS = {"K4": "tools/bench_gather2.py:66",
 
 
 def make_inputs(device: torch.device, seed: int = 0, rows: int = ROWS,
-                n: int = N, patch: int = PATCH) -> Dict:
+                n: int = N) -> Dict:
     """The reference's arrays, drawn in its order from default_rng(seed)."""
     rng = np.random.default_rng(seed)
     bf = torch.bfloat16
     img = to_torch(rng.normal(size=(rows, C)), bf, device)
     idx = to_torch(rng.integers(0, rows, size=n), torch.int32, device)
-    idx_small = to_torch(rng.integers(0, patch, size=n), torch.int32, device)
+    idx_small = to_torch(rng.integers(0, PATCH, size=n), torch.int32, device)
     return dict(img=img, idx=idx, idx_sorted=torch.sort(idx).values,
-                idx_small=idx_small, patch=img[:patch].contiguous())
+                idx_small=idx_small, patch=img[:PATCH].contiguous())
 
 
 def cases(inp: Dict) -> List[KernelCase]:
@@ -90,9 +90,10 @@ def run(inp: Dict, device: torch.device, iters: int = 5) -> Dict:
     names = {"B": "B  row-gather kernel (K4)", "C": "C  window kernel (K5)",
              "D": "D  window kernel (K6)"}
     for case in cases(inp):
-        check_equal(case.probe, case.call(), case.library())
+        err = check_case(case)
         res[case.probe] = probe(names[case.probe], case.call, n, device,
                                 iters, case.kernel, case.flops, case.nbytes)
+        res[case.probe]["max_abs_err"] = err
     return res
 
 
@@ -100,13 +101,10 @@ def main(argv=None) -> Dict:
     p = base_parser(__doc__)
     p.add_argument("--rows", type=int, default=ROWS)
     p.add_argument("--n", type=int, default=N)
-    p.add_argument("--patch", type=int, default=PATCH)
-    p.add_argument("--iters", type=int, default=5)
     a = p.parse_args(argv)
     device = resolve_device(a.device)
     print(device_line(device), flush=True)
-    inp = make_inputs(device, a.seed, a.rows, a.n, a.patch)
-    return run(inp, device, a.iters)
+    return run(make_inputs(device, a.seed, a.rows, a.n), device)
 
 
 if __name__ == "__main__":

@@ -33,7 +33,7 @@ from ..device import resolve_device
 from ..ops.gather import (gather_lanes, gather_lanes_plain, gather_onehot,
                           gather_onehot_plain, gather_rows_plain,
                           gather_rows_window)
-from .common import (KernelCase, base_parser, check_equal, device_line,
+from .common import (KernelCase, base_parser, check_case, device_line,
                      dtype_name, nbytes, probe, to_torch)
 
 N = 786_432          # queries per render chunk (4096 rays x 192 samples)
@@ -132,9 +132,10 @@ def run(inp: Dict, device: torch.device, iters: int = 5) -> Dict:
              "P2": "P2 lane kernel bf16 (K8)",
              "P3": f"P3 one-hot kernel win={OH_WIN} (K9)"}
     for case in cases(inp):
-        check_equal(case.probe, case.call(), case.library())
+        err = check_case(case)
         res[case.probe] = probe(names[case.probe], case.call, n, device,
                                 iters, case.kernel, case.flops, case.nbytes)
+        res[case.probe]["max_abs_err"] = err
     return res
 
 
@@ -142,11 +143,10 @@ def main(argv=None) -> Dict:
     p = base_parser(__doc__)
     p.add_argument("--n", type=int, default=N)
     p.add_argument("--hw", type=int, default=HW)
-    p.add_argument("--iters", type=int, default=5)
     a = p.parse_args(argv)
     device = resolve_device(a.device)
     print(device_line(device), flush=True)
-    return run(make_inputs(device, a.seed, a.n, a.hw), device, a.iters)
+    return run(make_inputs(device, a.seed, a.n, a.hw), device)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ docstring says why the TPU kernel's tile-local indices are not copied).
 
     python3 -m tcnerf_torch.tools.bench_gather4            # on the card
     python3 -m tcnerf_torch.tools.bench_gather4 --device cpu --n 1024 \
-        --hw 4096 --k 2 --outer 1                          # plain versions
+        --hw 4096 --k 2                                    # plain versions
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from ..device import resolve_device
 from ..ops.gather import (gather_lanes, gather_lanes_plain, gather_onehot,
                           gather_onehot_plain, gather_rows_plain,
                           gather_rows_window)
-from .common import (KernelCase, base_parser, check_equal, device_line,
+from .common import (KernelCase, base_parser, check_case, device_line,
                      dtype_name, nbytes, probe, to_torch)
 
 N = 786_432
@@ -158,13 +158,11 @@ def run(inp: Dict, device: torch.device, k: int = K, outer: int = 3) -> Dict:
         fn = amortized(op, carry, *args, k=k)
         if case is None:
             return probe(name, fn, n, device, outer, per_call=k)
-        return probe(name, fn, n, device, outer, case.kernel, case.flops,
-                     case.nbytes, per_call=k)
+        return dict(probe(name, fn, n, device, outer, case.kernel, case.flops,
+                          case.nbytes, per_call=k), max_abs_err=errs[case.probe])
 
-    kc = {}
-    for case in cases(inp):
-        check_equal(case.probe, case.call(), case.library())
-        kc[case.probe] = case
+    kc = {case.probe: case for case in cases(inp)}
+    errs = {p: check_case(case) for p, case in kc.items()}
     return {
         "Z": go("Z   noop x+i", op_noop, keys),
         "S1": go("S1  torch.sort", op_sort, keys),
@@ -188,11 +186,10 @@ def main(argv=None) -> Dict:
     p.add_argument("--n", type=int, default=N)
     p.add_argument("--hw", type=int, default=HW)
     p.add_argument("--k", type=int, default=K)
-    p.add_argument("--outer", type=int, default=3)
     a = p.parse_args(argv)
     device = resolve_device(a.device)
     print(device_line(device), flush=True)
-    return run(make_inputs(device, a.seed, a.n, a.hw), device, a.k, a.outer)
+    return run(make_inputs(device, a.seed, a.n, a.hw), device, a.k)
 
 
 if __name__ == "__main__":

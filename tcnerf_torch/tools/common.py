@@ -101,6 +101,11 @@ def time_ms(fn: Callable, device: torch.device, iters: int,
     return start.elapsed_time(end) / iters
 
 
+def check_case(case: KernelCase) -> float:
+    """The case's kernel call against its plain version, bit for bit."""
+    return check_equal(f"{case.k} {case.probe}", case.call(), case.plain())
+
+
 def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """Bit-equality (a gather moves bits); returns max |got - want|."""
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -126,8 +131,10 @@ def probe(name: str, fn: Callable, n: int, device: torch.device, iters: int,
     if kernel:
         b, by = bound_ms(flops, nbytes)
         res.update(kernel=kernel, launches=GATHER.counts[kernel] - before,
-                   bound_ms=b, bound_by=by)
+                   bound_ms=b, bound_by=by, bytes_ms=bound_ms(0., nbytes)[0])
         line += f"  bound {b:.4f} ms by {by}"
+        if by == "operations":
+            line += f" (bytes alone {res['bytes_ms']:.4f} ms)"
         if device.type == "cuda":
             line += f" ({ms / b:.2f}x)"
     print(f"{line} [{device.type}]", flush=True)

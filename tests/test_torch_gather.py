@@ -151,14 +151,12 @@ def test_onehot_plain_runs_in_chunks(monkeypatch):
 
 
 TOOLS = {
-    "bench_gather2": (bench_gather2, ["--rows", "4096", "--n", "1024",
-                                      "--iters", "1"],
+    "bench_gather2": (bench_gather2, ["--rows", "4096", "--n", "1024"],
                       ["A", "A2", "B", "C", "D"]),
-    "bench_gather3": (bench_gather3, ["--n", "1024", "--hw", "4096",
-                                      "--iters", "1"],
+    "bench_gather3": (bench_gather3, ["--n", "1024", "--hw", "4096"],
                       ["S1", "S2", "S3", "G1", "G2", "P1", "P1b", "P2", "P3"]),
     "bench_gather4": (bench_gather4, ["--n", "1024", "--hw", "4096", "--k",
-                                      "2", "--outer", "1"],
+                                      "2"],
                       ["Z", "S1", "S3", "S2", "G1", "G2", "P1", "P2", "P2f",
                        "P3"]),
 }
@@ -167,8 +165,8 @@ TOOLS = {
 @pytest.mark.parametrize("name", sorted(TOOLS))
 def test_tool_runs_end_to_end_on_cpu(name, capsys):
     """Each port tool runs every probe of its JAX counterpart on the CPU at
-    a small size (its kernel probes check the plain version against the
-    library call), prints the device line and one line per probe, and
+    a small size (its kernel probes check the kernel call against the plain
+    version), prints the device line and one line per probe, and
     without a card refuses to run on its default device."""
     tool, argv, probes = TOOLS[name]
     res = tool.main(["--device", "cpu", *argv])
@@ -179,6 +177,7 @@ def test_tool_runs_end_to_end_on_cpu(name, capsys):
         assert np.isfinite(r["ms"]) and r["ms"] > 0
         if "kernel" in r:
             assert r["launches"] == 0 and r["bound_ms"] > 0
+            assert r["max_abs_err"] == 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tool.main([])
