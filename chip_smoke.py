@@ -65,31 +65,16 @@ def phase_build():
                 print(f"  {source}: {line.strip()}")
 
 
-def random_chain(gen, n_blocks, d_in, out_dim, device):
-    """Flat chain weights ([in, out] layout) in bf16, glorot-like scale."""
-    import torch
-
-    def w(shape, scale):
-        return (torch.randn(shape, generator=gen, device=device)
-                * scale).to(torch.bfloat16)
-
-    flat = [] if d_in is None else [w((d_in, HID), d_in ** -0.5),
-                                    w((HID,), 0.1)]
-    for _ in range(n_blocks):
-        flat += [w((HID, HID), HID ** -0.5), w((HID,), 0.1),
-                 w((HID, HID), HID ** -0.5), w((HID,), 0.1)]
-    if out_dim:
-        flat += [w((HID, out_dim), HID ** -0.5), w((out_dim,), 0.1)]
-    return flat
-
-
 def phase_kernels(dev, card):
-    """Each kernel mode against its plain version at main-path shapes."""
+    """Each kernel mode against its plain version at main-path shapes, then
+    timed; the kernels read weights packed once, as the serving paths do.
+    K1 and K2 are also timed at the coarse stage's 524,288 rows, so that
+    launches x time adds up to a view's device time."""
     import torch
-    from tcnerf_torch.ops.resmlp import resmlp_plain, resmlp_rows
-    from tcnerf_torch.ops.swg import (encode_head, swg_field_plain,
+    from tcnerf_torch.ops.resmlp import pack_chain, resmlp_plain, resmlp_rows
+    from tcnerf_torch.ops.swg import (encode_head, pack_swg, swg_field_plain,
                                       swg_field_rows)
-    from tcnerf_torch.tools.common import bound_ms, time_ms
+    from tcnerf_torch.tools.common import bound_ms, random_chain, time_ms
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
@@ -98,29 +83,34 @@ def phase_kernels(dev, card):
     n = CHUNK * 2 * N_SAMPLES
     x = torch.randn((n, HID), generator=gen, device=dev).to(torch.bfloat16)
     wts = random_chain(gen, 3, None, 0, dev)
-    got = resmlp_rows(x, wts, 3, skip_input=True)
+    pk = pack_chain(wts, 3, skip_input=True)
+
+    def k1(rows):
+        return resmlp_rows(x[:rows], wts, 3, skip_input=True, pack=pk)
+
+    got = k1(n)
     want = resmlp_plain(x, wts, 3, skip_input=True)
     err = compare("K1 resmlp_rows chain half [1048576x128] bf16", got, want,
                   2e-2, "bf16 output rounding, f32 stream")
-    flops = 2 * n * 6 * HID * HID
-    nbytes = 2 * n * HID * 2
     results["K1"] = dict(
-        err=err,
-        ms=time_ms(lambda: resmlp_rows(x, wts, 3, skip_input=True), dev, 10),
+        err=err, ms=time_ms(lambda: k1(n), dev, 10),
+        coarse_ms=time_ms(lambda: k1(n // 2), dev, 10),
         plain_ms=time_ms(lambda: resmlp_plain(x, wts, 3, skip_input=True),
                          dev, 3),
-        bound=bound_ms(flops, nbytes))
+        bound=bound_ms(2 * n * 6 * HID * HID, 2 * n * HID * 2))
     del x, got, want
 
     # K1, the fused_field form: 379 -> 128 -> 6 blocks -> 4, coarse stage
     n = CHUNK * N_SAMPLES
     x = torch.randn((n, 379), generator=gen, device=dev).to(torch.bfloat16)
     wts = random_chain(gen, 6, 379, 4, dev)
-    got = resmlp_rows(x, wts, 6, readout=True)
+    pk = pack_chain(wts, 6, readout=True)
+    got = resmlp_rows(x, wts, 6, readout=True, pack=pk)
     want = resmlp_plain(x, wts, 6, readout=True)
     err = compare("K1 resmlp_rows fused_field form [524288x379 -> 4] bf16",
                   got, want, 2e-2, "bf16 output rounding, f32 stream")
-    ms = time_ms(lambda: resmlp_rows(x, wts, 6, readout=True), dev, 10)
+    ms = time_ms(lambda: resmlp_rows(x, wts, 6, readout=True, pack=pk), dev,
+                 10)
     pms = time_ms(lambda: resmlp_plain(x, wts, 6, readout=True), dev, 3)
     b, by = bound_ms(2 * n * (379 * HID + 12 * HID * HID + HID * 4),
                      n * (379 + 4) * 2)
@@ -140,8 +130,14 @@ def phase_kernels(dev, card):
     head_k = torch.randn((120, HID), generator=gen, device=dev) * 0.09
     head_b = torch.randn((HID,), generator=gen, device=dev) * 0.1
     wts = random_chain(gen, 6, None, 4, dev)
+    pk = pack_swg(wts, 6, head_k, head_b)
     args = (img, coords, pos, dirs, wts, 6, head_k, head_b)
-    got = swg_field_rows(*args)
+
+    def k2(rows):
+        return swg_field_rows(img, coords[:rows], pos[:rows], dirs[:rows],
+                              wts, 6, head_k, head_b, pack=pk)
+
+    got = k2(n)
     want = swg_field_plain(*args)
     err = compare("K2 swg head-inside fine stage [1048576 queries]", got,
                   want, 2e-2, "bf16 stream: summation order and bf16 "
@@ -149,14 +145,15 @@ def phase_kernels(dev, card):
     flops = 2 * n * (120 * HID + 12 * HID * HID + HID * 4)
     nbytes = n * (2 * 4 + 6 * 4 + 4 * 4) + H * W * HID * 2
     results["K2"] = dict(
-        err=err, ms=time_ms(lambda: swg_field_rows(*args), dev, 10),
+        err=err, ms=time_ms(lambda: k2(n), dev, 10),
+        coarse_ms=time_ms(lambda: k2(n // 2), dev, 10),
         plain_ms=time_ms(lambda: swg_field_plain(*args), dev, 3),
         bound=bound_ms(flops, nbytes))
     del got, want
 
     h0 = encode_head(pos, dirs, head_k, head_b, torch.bfloat16)
     kw = dict(h0_geo=h0, fast=False)
-    got = swg_field_rows(img, coords, None, None, wts, 6, **kw)
+    got = swg_field_rows(img, coords, None, None, wts, 6, pack=pk, **kw)
     want = swg_field_plain(img, coords, None, None, wts, 6, **kw)
     err = compare("K3 swg head-given fine stage, f32 stream", got, want,
                   2e-2, "bf16 operands: a last-bit difference in the f32 "
@@ -166,13 +163,16 @@ def phase_kernels(dev, card):
     results["K3"] = dict(
         err=err,
         ms=time_ms(lambda: swg_field_rows(img, coords, None, None, wts, 6,
-                                          **kw), dev, 10),
+                                          pack=pk, **kw), dev, 10),
         plain_ms=time_ms(lambda: swg_field_plain(img, coords, None, None,
                                                  wts, 6, **kw), dev, 3),
         bound=bound_ms(flops, nbytes))
     for k, r in results.items():
-        print(f"time {k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]}) [{card}]")
+        coarse = (f", coarse stage {r['coarse_ms']:.4f} ms"
+                  if "coarse_ms" in r else "")
+        print(f"time {k}: {r['ms']:.4f} ms{coarse} (plain {r['plain_ms']:.4f}"
+              f" ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}) "
+              f"[{card}]")
     return results
 
 
@@ -228,9 +228,9 @@ def phase_sweep(dev, card):
     number of residual blocks: the intercept is the row I/O, gather and head,
     the slope the cost of one residual block."""
     import torch
-    from tcnerf_torch.ops.resmlp import resmlp_rows
-    from tcnerf_torch.ops.swg import swg_field_rows
-    from tcnerf_torch.tools.common import time_ms
+    from tcnerf_torch.ops.resmlp import pack_chain, resmlp_rows
+    from tcnerf_torch.ops.swg import pack_swg, swg_field_rows
+    from tcnerf_torch.tools.common import random_chain, time_ms
 
     gen = torch.Generator(device=dev).manual_seed(0)
     n = CHUNK * 2 * N_SAMPLES
@@ -246,9 +246,12 @@ def phase_sweep(dev, card):
     for nb in (0, 1, 2, 3, 6):
         w1 = random_chain(gen, nb, None, 0, dev)
         w2 = random_chain(gen, nb, None, 4, dev)
-        k1 = time_ms(lambda: resmlp_rows(x, w1, nb, skip_input=True), dev, 10)
+        p1 = pack_chain(w1, nb, skip_input=True, device=dev)
+        p2 = pack_swg(w2, nb, head_k, head_b)
+        k1 = time_ms(lambda: resmlp_rows(x, w1, nb, skip_input=True, pack=p1),
+                     dev, 10)
         k2 = time_ms(lambda: swg_field_rows(img, coords, pos, dirs, w2, nb,
-                                            head_k, head_b), dev, 10)
+                                            head_k, head_b, pack=p2), dev, 10)
         print(f"sweep n_blocks={nb}: K1 {k1:.4f} ms, K2 {k2:.4f} ms [{card}]")
 
 

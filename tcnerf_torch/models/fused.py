@@ -18,6 +18,7 @@ port's `MVNeRFRenderer` in place of the flax parameter tree.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -26,9 +27,9 @@ import torch
 from ..core import projection, render, sampling
 from ..core.encoding import positional_encoding
 from ..ops.interpolate import gather_projection_features
-from ..ops.resmlp import resmlp_rows
+from ..ops.resmlp import ChainPack, resmlp_rows
 from ..ops.sortmerge import merge_sorted, sort_small
-from ..ops.swg import encode_head, swg_field_plain, swg_field_rows
+from ..ops.swg import encode_head, pack_swg, swg_field_plain, swg_field_rows
 
 
 def flatten_mv_params(embedding, readout=None) -> Tuple[torch.Tensor, ...]:
@@ -115,6 +116,7 @@ class SwgStage(NamedTuple):
     head_b: torch.Tensor       # [hidden] f32
     flat: Tuple[torch.Tensor, ...]   # block + readout weights, stream dtype
     image: torch.Tensor        # [H, W, hidden] pre-projected, stream dtype
+    pack: Optional[ChainPack]  # head + chain as the kernel reads it (CUDA)
 
 
 class SwgPrepared(NamedTuple):
@@ -136,8 +138,9 @@ def swg_prepare(model, src_images, combined_features, n_blocks: int = 6,
                 pd: Optional[int] = None, dtype=None,
                 n_freq: int = 10) -> SwgPrepared:
     """Every chunk-invariant artifact of the swg path, computed once: per
-    stage the head split of layer_0, the chain weights in the stream dtype
-    and the 259-channel image pre-projected through layer_0's feature rows.
+    stage the head split of layer_0, the chain weights in the stream dtype,
+    the 259-channel image pre-projected through layer_0's feature rows and,
+    on a card, the kernel's packed weights.
     dtype: stream dtype (default combined_features'); serving passes bf16."""
     if pd is None:
         pd = 12 * n_freq
@@ -153,7 +156,9 @@ def swg_prepare(model, src_images, combined_features, n_blocks: int = 6,
     for stage in ("coarse", "fine"):
         k, b0, flat = swg_stage_params(model, stage, n_blocks, dtype)
         image = (combined @ k[pd:].to(dtype)).contiguous()
-        stages.append(SwgStage(k[:pd].float(), b0.float(), flat, image))
+        pack = (pack_swg(flat, n_blocks, k[:pd].float(), b0.float(), n_freq)
+                if image.is_cuda else None)
+        stages.append(SwgStage(k[:pd].float(), b0.float(), flat, image, pack))
     return SwgPrepared(stages[0], stages[1], n_freq)
 
 
@@ -171,7 +176,8 @@ def swg_field(stage: SwgStage, world_points, cam_dirs, src_intrinsics,
     pos = cam_points[..., :3].reshape(-1, 3).contiguous()
     dirs = cam_dirs[:, :, :, None, :].expand(b, 1, r, s, 3).reshape(-1, 3) \
         .contiguous()
-    field = swg_field_plain if plain else swg_field_rows
+    field = (swg_field_plain if plain else
+             functools.partial(swg_field_rows, pack=stage.pack))
     if fast:
         out = field(stage.image, coords, pos, dirs, stage.flat, n_blocks,
                     stage.head_k, stage.head_b, fast=True, n_freq=n_freq)

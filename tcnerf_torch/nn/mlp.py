@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ..core.encoding import positional_encoding
-from ..ops.resmlp import resmlp_rows
+from ..ops.resmlp import pack_chain, resmlp_rows
 from .blocks import ResNetMLPBlock
 from .layers import Dense, _compute_dtype
 
@@ -113,24 +113,37 @@ class MVResNetMLPEmbedding(nn.Module):
             outputs.append(block(outputs[-1]))
         return outputs if self.complete_output else outputs[-1]
 
+    def _chain_flat(self, blocks, dt):
+        out = []
+        for blk in blocks:
+            for layer in (blk.layer_0, blk.layer_1):
+                out += [layer.weight.t().to(dt), layer.bias.to(dt)]
+        return out
+
+    def _chain_packs(self, flats, dt):
+        """The kernel's packed weights of both halves, built once and again
+        only when a parameter is replaced or changed in place."""
+        key = (dt, tuple((p.data_ptr(), p._version) for p in self.parameters()))
+        if getattr(self, "_packs_key", None) != key:
+            dev = next(self.parameters()).device
+            self._packs = tuple(pack_chain(f, len(f) // 4, skip_input=True,
+                                           device=dev) for f in flats)
+            self._packs_key = key
+        return self._packs
+
     def _pallas_chain(self, x):
         """Both chain halves through the fused kernel, with the mean view
         fusion between them; the stream is f32 inside the kernel."""
         dt = x.dtype
-
-        def flat(blocks):
-            out = []
-            for blk in blocks:
-                for layer in (blk.layer_0, blk.layer_1):
-                    out += [layer.weight.t().to(dt), layer.bias.to(dt)]
-            return out
-
+        flats = [self._chain_flat(self.feature_blocks, dt),
+                 self._chain_flat(self.fusion_blocks, dt)]
+        packs = (self._chain_packs(flats, dt) if x.is_cuda else (None, None))
         shape = x.shape
-        h1 = resmlp_rows(x.reshape(-1, shape[-1]).contiguous(),
-                         flat(self.feature_blocks), len(self.feature_blocks),
-                         skip_input=True).reshape(shape)
+        h1 = resmlp_rows(x.reshape(-1, shape[-1]).contiguous(), flats[0],
+                         len(self.feature_blocks), skip_input=True,
+                         pack=packs[0]).reshape(shape)
         fused = h1.reshape((-1, self.n_views) + shape[1:]).mean(dim=1)
-        h2 = resmlp_rows(fused.reshape(-1, shape[-1]).contiguous(),
-                         flat(self.fusion_blocks), len(self.fusion_blocks),
-                         skip_input=True)
+        h2 = resmlp_rows(fused.reshape(-1, shape[-1]).contiguous(), flats[1],
+                         len(self.fusion_blocks), skip_input=True,
+                         pack=packs[1])
         return h2.reshape(fused.shape)

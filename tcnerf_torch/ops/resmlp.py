@@ -10,12 +10,18 @@ Numerics (both versions, as `chain_math`): every product casts its input to
 the weight dtype and accumulates in f32, then adds the bias in f32. With
 `fast`, each layer output drops back to the weight dtype (the bf16 serving
 stream); otherwise the stream stays f32. The output has x's dtype.
+
+The kernel streams its layers from one packed tensor (`pack_chain`, a
+`ChainPack`): per 128x128 layer the bf16 `[out][in]` weights in the
+canonical K-major 128-byte-swizzled layout that wgmma reads from shared
+memory (`swizzle_index`), then the layer's f32 bias. Callers on a hot path
+build the pack once and pass it; without one the wrapper packs per call.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -23,10 +29,14 @@ from .cuda_lib import KernelLib, ptr, stream_handle
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 RESMLP = KernelLib("resmlp.cu", {"resmlp_launch": [
-    _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]})
+    _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P]})
 
 HIDDEN = 128
 MAX_OUT = 8
+# one ring entry of the kernel (csrc/chain.cuh STAGE_BYTES): a swizzled
+# [128][128] bf16 layer, then its [128] f32 bias
+LAYER_BYTES = HIDDEN * HIDDEN * 2
+STAGE_BYTES = LAYER_BYTES + HIDDEN * 4
 
 
 def _act(activation: str):
@@ -68,24 +78,91 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"resmlp_rows: {msg}")
 
 
-def pack_blocks(blocks: Sequence[torch.Tensor], n_blocks: int,
-                device: torch.device):
-    """Block weights -> ([2n, 128, 128] bf16 in [out][in], [2n, 128] f32)."""
-    if n_blocks == 0:      # the kernel never reads them; keep pointers valid
-        return (torch.zeros((1, HIDDEN, HIDDEN), dtype=torch.bfloat16,
-                            device=device),
-                torch.zeros((1, HIDDEN), dtype=torch.float32, device=device))
-    ws = [blocks[4 * i + j].t() for i in range(n_blocks) for j in (0, 2)]
-    bs = [blocks[4 * i + j] for i in range(n_blocks) for j in (1, 3)]
-    return torch.stack(ws).contiguous(), torch.stack(bs).float().contiguous()
+def swizzle_index(rows: int) -> torch.Tensor:
+    """Element position of each (row, k) of a [rows][128] bf16 matrix in
+    the canonical K-major 128-byte-swizzled wgmma layout: two 64-column
+    halves of [rows][64] each, rows of 128 bytes, and 16-byte chunk c of
+    row m stored at chunk c ^ (m % 8) (csrc/chain.cuh `sw128_offset`)."""
+    m = torch.arange(rows)[:, None]
+    k = torch.arange(HIDDEN)[None, :]
+    return ((k // 64) * rows * 64 + m * 64 + (((k % 64) // 8) ^ (m % 8)) * 8
+            + k % 8)
+
+
+class ChainPack(NamedTuple):
+    """A chain's weights as the kernels read them, built once."""
+    ring: torch.Tensor           # [L, STAGE_BYTES] uint8, streamed in order
+    wro: Optional[torch.Tensor]  # [out_dim, 128] bf16 readout ([out][in])
+    bro: Optional[torch.Tensor]  # [out_dim] f32
+
+
+def pack_ring(mats: torch.Tensor, biases: torch.Tensor) -> torch.Tensor:
+    """[L, 128, 128] [out][in] layers and [L, 128] biases -> ring entries
+    [L, STAGE_BYTES] uint8: each layer's bf16 weights in the swizzled order,
+    then its f32 bias. One zero entry for L = 0, so that the kernel always
+    gets a valid pointer."""
+    if mats.shape[0] == 0:
+        return torch.zeros((1, STAGE_BYTES), dtype=torch.uint8,
+                           device=mats.device)
+    idx = swizzle_index(HIDDEN).reshape(-1).to(mats.device)
+    w = torch.empty((mats.shape[0], HIDDEN * HIDDEN), dtype=torch.bfloat16,
+                    device=mats.device)
+    w[:, idx] = mats.to(torch.bfloat16).reshape(mats.shape[0], -1)
+    b = biases.float().contiguous()
+    return torch.cat([w.view(torch.uint8), b.view(torch.uint8)], 1).contiguous()
+
+
+def chain_layers(weights: Sequence[torch.Tensor], n_blocks: int,
+                 skip_input: bool, device: torch.device):
+    """Flat JAX-layout weights -> the ring's layers in order: the input
+    Dense in 128-wide k-chunks of W0^T (zero past d_in; b0 with the last
+    chunk), then each block's two layers. Returns ([L, 128, 128] [out][in],
+    [L, 128] biases)."""
+    mats, biases = [], []
+    idx = 0
+    if not skip_input:
+        w0, b0 = weights[0], weights[1]
+        d_in = w0.shape[0]
+        w0t = torch.zeros((HIDDEN, -(-d_in // HIDDEN) * HIDDEN),
+                          dtype=w0.dtype, device=w0.device)
+        w0t[:, :d_in] = w0.t()
+        chunks = list(w0t.split(HIDDEN, dim=1))
+        mats += chunks
+        biases += [torch.zeros_like(b0)] * (len(chunks) - 1) + [b0]
+        idx = 2
+    for i in range(n_blocks):
+        wa, ba, wb, bb = weights[idx + 4 * i: idx + 4 * i + 4]
+        mats += [wa.t(), wb.t()]
+        biases += [ba, bb]
+    if not mats:
+        return (torch.zeros((0, HIDDEN, HIDDEN), device=device),
+                torch.zeros((0, HIDDEN), device=device))
+    return torch.stack(mats), torch.stack(biases)
+
+
+def pack_chain(weights: Sequence[torch.Tensor], n_blocks: int,
+               readout: bool = False, skip_input: bool = False,
+               device: Optional[torch.device] = None) -> ChainPack:
+    """The kernel's view of a chain's flat weights (see the module doc), on
+    `device` (default: the weights')."""
+    if device is None:
+        device = weights[0].device if weights else torch.device("cpu")
+    mats, biases = chain_layers(weights, n_blocks, skip_input, device)
+    wro = bro = None
+    if readout:
+        wro = weights[-2].t().to(torch.bfloat16).contiguous()
+        bro = weights[-1].float().contiguous()
+    return ChainPack(pack_ring(mats, biases), wro, bro)
 
 
 def resmlp_rows(x: torch.Tensor, weights: Sequence[torch.Tensor],
                 n_blocks: int, readout: bool = False,
                 activation: str = "relu", skip_input: bool = False,
-                fast: bool = False) -> torch.Tensor:
+                fast: bool = False,
+                pack: Optional[ChainPack] = None) -> torch.Tensor:
     """The fused chain over rows. A CPU tensor takes `resmlp_plain`; a CUDA
-    tensor launches the kernel (bf16 weights, hidden 128, readout <= 8)."""
+    tensor launches the kernel (bf16 weights, hidden 128, readout <= 8),
+    from `pack` (`pack_chain` of the same weights) when given."""
     if x.device.type == "cpu":
         return resmlp_plain(x, weights, n_blocks, readout, activation,
                             skip_input, fast)
@@ -102,38 +179,37 @@ def resmlp_rows(x: torch.Tensor, weights: Sequence[torch.Tensor],
     idx = 0
     if skip_input:
         _check(x.shape[1] == HIDDEN, f"skip_input needs width {HIDDEN}")
-        w0t = b0 = None
         d_in = 0
     else:
-        w0, b0 = weights[0], weights[1].float().contiguous()
-        _check(tuple(w0.shape) == (x.shape[1], HIDDEN), "w0 must be [D_in, 128]")
+        _check(tuple(weights[0].shape) == (x.shape[1], HIDDEN),
+               "w0 must be [D_in, 128]")
         d_in, idx = x.shape[1], 2
-        d_pad = -(-d_in // HIDDEN) * HIDDEN
-        w0t = torch.zeros((HIDDEN, d_pad), dtype=torch.bfloat16,
-                          device=x.device)
-        w0t[:, :d_in] = w0.t()
-    blocks = weights[idx:idx + 4 * n_blocks]
-    for i, w in enumerate(blocks):
+    for i, w in enumerate(weights[idx:idx + 4 * n_blocks]):
         _check(tuple(w.shape) == ((HIDDEN, HIDDEN) if i % 2 == 0 else (HIDDEN,)),
                "block weights must be [128, 128] / [128]")
-    wpack, bpack = pack_blocks(blocks, n_blocks, x.device)
+    out_dim = 0
     if readout:
-        wr, br = weights[-2], weights[-1]
-        out_dim = wr.shape[1]
-        _check(wr.shape[0] == HIDDEN and 0 < out_dim <= MAX_OUT,
+        out_dim = weights[-2].shape[1]
+        _check(weights[-2].shape[0] == HIDDEN and 0 < out_dim <= MAX_OUT,
                f"readout must be [128, <= {MAX_OUT}]")
-        wro, bro = wr.t().contiguous(), br.float().contiguous()
-    else:
-        out_dim, wro, bro = 0, None, None
+    if pack is None:
+        pack = pack_chain(weights, n_blocks, readout, skip_input, x.device)
+    n_layers = -(-d_in // HIDDEN) + 2 * n_blocks
+    _check(pack.ring.device == x.device and pack.ring.is_contiguous()
+           and pack.ring.shape == (max(n_layers, 1), STAGE_BYTES)
+           and (pack.wro is None if out_dim == 0
+                else pack.wro.shape == (out_dim, HIDDEN)),
+           f"pack must hold [{max(n_layers, 1)}, {STAGE_BYTES}] ring entries "
+           "and the readout on x's device")
     n = x.shape[0]
     out = torch.empty((n, out_dim or HIDDEN), dtype=x.dtype, device=x.device)
     if n == 0:
         return out
     round_stream = fast and (not skip_input or x.dtype == torch.bfloat16)
     RESMLP.call("resmlp_launch", ptr(x), ptr(out),
-                int(x.dtype == torch.bfloat16), ptr(w0t), ptr(b0), d_in,
-                ptr(wpack), ptr(bpack), n_blocks, ptr(wro), ptr(bro), out_dim,
-                n, int(fast), int(round_stream), int(activation == "elu"),
+                int(x.dtype == torch.bfloat16), ptr(pack.ring), d_in,
+                n_blocks, ptr(pack.wro), ptr(pack.bro), out_dim, n,
+                int(fast), int(round_stream), int(activation == "elu"),
                 stream_handle(x.device))
     RESMLP.counts["resmlp_rows"] += 1
     return out

@@ -31,12 +31,13 @@ import torch
 from ..core.encoding import positional_encoding_fast
 from .cuda_lib import KernelLib, ptr, stream_handle
 from .interpolate import bilinear_gather
-from .resmlp import HIDDEN, MAX_OUT, pack_blocks, resmlp_plain
+from .resmlp import (HIDDEN, MAX_OUT, STAGE_BYTES, ChainPack, chain_layers,
+                     pack_ring, resmlp_plain)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SWG = KernelLib("swg.cu", {"swg_launch": [
-    _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _F, _P, _P, _I, _P, _P, _I,
-    _I, _I, _I, _P, _P]})
+    _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _I, _P, _P, _I, _I, _I, _I,
+    _P, _P]})
 
 
 def encode_head(pos: torch.Tensor, dirs: torch.Tensor, head_k: torch.Tensor,
@@ -96,6 +97,29 @@ def _head_permutation_on(n_freq: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(head_permutation(n_freq), device=device)
 
 
+def pack_swg(weights: Sequence[torch.Tensor], n_blocks: int,
+             head_k: Optional[torch.Tensor] = None,
+             head_b: Optional[torch.Tensor] = None,
+             n_freq: int = 10) -> ChainPack:
+    """The kernel's view of a field stage, built once per stage: ring entry
+    0 is the head (head_k's rows in the kernel's encoding-column order,
+    zero past 12 * n_freq, and head_b; zero without a head), then the
+    2 * n_blocks chain layers; the head-given mode streams `ring[1:]`."""
+    dev = weights[-1].device
+    head_t = torch.zeros((HIDDEN, HIDDEN), dtype=torch.bfloat16, device=dev)
+    hb = torch.zeros((1, HIDDEN), device=dev)
+    if head_k is not None:
+        head_t[:, :12 * n_freq] = \
+            head_k[_head_permutation_on(n_freq, dev)].t().to(torch.bfloat16)
+        hb = head_b.float()[None]
+    mats, biases = chain_layers(weights[:-2], n_blocks, True, dev)
+    mats = torch.cat([head_t[None], mats.to(torch.bfloat16)])
+    biases = torch.cat([hb, biases.float()])
+    return ChainPack(pack_ring(mats, biases),
+                     weights[-2].t().to(torch.bfloat16).contiguous(),
+                     weights[-1].float().contiguous())
+
+
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"swg_field_rows: {msg}")
@@ -108,9 +132,11 @@ def swg_field_rows(img: torch.Tensor, coords: torch.Tensor,
                    head_b: Optional[torch.Tensor] = None,
                    h0_geo: Optional[torch.Tensor] = None, fast: bool = True,
                    n_freq: int = 10, base_freq: float = math.pi,
-                   activation: str = "relu") -> torch.Tensor:
+                   activation: str = "relu",
+                   pack: Optional[ChainPack] = None) -> torch.Tensor:
     """The fused field stage. A CPU image takes `swg_field_plain`; a CUDA
-    image launches the kernel (bf16 image and weights, hidden 128)."""
+    image launches the kernel (bf16 image and weights, hidden 128), from
+    `pack` (`pack_swg` of the same weights and head) when given."""
     if img.device.type == "cpu":
         return swg_field_plain(img, coords, pos, dirs, weights, n_blocks,
                                head_k, head_b, h0_geo, fast, n_freq,
@@ -131,26 +157,21 @@ def swg_field_rows(img: torch.Tensor, coords: torch.Tensor,
         _check(wt.device == dev and wt.dtype == torch.bfloat16,
                "weights must be bf16 on img's device")
     _check(activation in ("relu", "elu"), f"activation {activation}")
-    wr, br = weights[-2], weights[-1]
-    out_dim = wr.shape[1]
-    _check(wr.shape[0] == HIDDEN and 0 < out_dim <= MAX_OUT,
+    out_dim = weights[-2].shape[1]
+    _check(weights[-2].shape[0] == HIDDEN and 0 < out_dim <= MAX_OUT,
            f"readout must be [128, <= {MAX_OUT}]")
-    wpack, bpack = pack_blocks(weights[:-2], n_blocks, dev)
-    wro, bro = wr.t().contiguous(), br.float().contiguous()
-    head_t = hb = None
+    _check(1 <= n_freq and 12 * n_freq <= HIDDEN, f"n_freq {n_freq}")
     if h0_geo is None:
         _check(fast, "head-inside mode runs the bf16 stream only (fast=True)")
-        _check(1 <= n_freq and 12 * n_freq <= HIDDEN, f"n_freq {n_freq}")
         for name, t in (("pos", pos), ("dirs", dirs)):
             _check(t is not None and t.shape == (n, 3)
                    and t.dtype == torch.float32 and t.is_contiguous()
                    and t.device == dev, f"{name} must be contiguous f32 [N, 3]")
-        _check(head_k.shape == (12 * n_freq, HIDDEN) and head_b.shape == (HIDDEN,),
-               "head_k must be [12 * n_freq, 128], head_b [128]")
-        perm = _head_permutation_on(n_freq, dev)
-        head_t = torch.zeros((HIDDEN, HIDDEN), dtype=torch.bfloat16, device=dev)
-        head_t[:, :12 * n_freq] = head_k[perm].t().to(torch.bfloat16)
-        hb = head_b.float().contiguous()
+        if pack is None:
+            _check(head_k is not None and head_b is not None
+                   and head_k.shape == (12 * n_freq, HIDDEN)
+                   and head_b.shape == (HIDDEN,),
+                   "head_k must be [12 * n_freq, 128], head_b [128]")
         mode = "swg_head_inside"
     else:
         _check(h0_geo.shape == (n, HIDDEN) and h0_geo.dtype == torch.bfloat16
@@ -158,13 +179,21 @@ def swg_field_rows(img: torch.Tensor, coords: torch.Tensor,
                "h0_geo must be contiguous bf16 [N, 128]")
         pos = dirs = None
         mode = "swg_head_given"
+    if pack is None:
+        pack = pack_swg(weights, n_blocks, head_k, head_b, n_freq)
+    _check(pack.ring.device == dev and pack.ring.is_contiguous()
+           and pack.ring.shape == (1 + 2 * n_blocks, STAGE_BYTES)
+           and pack.wro.shape == (out_dim, HIDDEN),
+           f"pack must hold [{1 + 2 * n_blocks}, {STAGE_BYTES}] ring entries "
+           f"and a [{out_dim}, 128] readout on img's device")
+    ring = pack.ring if h0_geo is None else pack.ring[1:]
     out = torch.empty((n, out_dim), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     SWG.call("swg_launch", int(h0_geo is None), ptr(coords), ptr(pos),
-             ptr(dirs), ptr(h0_geo), ptr(img), h, w, ptr(head_t), ptr(hb),
-             n_freq, float(base_freq), ptr(wpack), ptr(bpack), n_blocks,
-             ptr(wro), ptr(bro), out_dim, n, int(fast),
-             int(activation == "elu"), ptr(out), stream_handle(dev))
+             ptr(dirs), ptr(h0_geo), ptr(img), h, w, ptr(ring), n_freq,
+             float(base_freq), n_blocks, ptr(pack.wro), ptr(pack.bro),
+             out_dim, n, int(fast), int(activation == "elu"), ptr(out),
+             stream_handle(dev))
     SWG.counts[mode] += 1
     return out

@@ -101,6 +101,26 @@ def time_ms(fn: Callable, device: torch.device, iters: int,
     return start.elapsed_time(end) / iters
 
 
+def random_chain(gen: torch.Generator, n_blocks: int, d_in: Optional[int],
+                 out_dim: int, device) -> list:
+    """Flat chain weights ([in, out] layout) in bf16, glorot-like scale: an
+    input Dense if d_in, n_blocks residual blocks, a readout if out_dim."""
+    HID = 128
+
+    def w(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(torch.bfloat16)
+
+    flat = [] if d_in is None else [w((d_in, HID), d_in ** -0.5),
+                                    w((HID,), 0.1)]
+    for _ in range(n_blocks):
+        flat += [w((HID, HID), HID ** -0.5), w((HID,), 0.1),
+                 w((HID, HID), HID ** -0.5), w((HID,), 0.1)]
+    if out_dim:
+        flat += [w((HID, out_dim), HID ** -0.5), w((out_dim,), 0.1)]
+    return flat
+
+
 def check_case(case: KernelCase) -> float:
     """The case's kernel call against its plain version, bit for bit."""
     return check_equal(f"{case.k} {case.probe}", case.call(), case.plain())

@@ -17,8 +17,9 @@ from tcnerf_torch.ops.gather import (GATHER, gather_lanes, gather_lanes_plain,
                                      gather_onehot, gather_onehot_plain,
                                      gather_rows, gather_rows_plain,
                                      gather_rows_window)
-from tcnerf_torch.ops.resmlp import RESMLP, resmlp_plain, resmlp_rows
-from tcnerf_torch.ops.swg import (SWG, encode_head, swg_field_plain,
+from tcnerf_torch.ops.resmlp import (RESMLP, pack_chain, resmlp_plain,
+                                     resmlp_rows)
+from tcnerf_torch.ops.swg import (SWG, encode_head, pack_swg, swg_field_plain,
                                   swg_field_rows)
 
 HID = 128
@@ -74,55 +75,102 @@ def cuda():
     return torch.device("cuda")
 
 
+# (rows, n_blocks, out_dim): n = 1, 65 and 1000 are not multiples of the
+# kernel's 128-row step; 40,000 rows make every one of ~132 persistent CTAs
+# walk several steps; 0 blocks leaves the weight ring empty
+RESMLP_SHAPES = [(1000, 3, 4), (1, 3, 4), (65, 0, 1), (777, 6, 8),
+                 (40000, 1, 8)]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,n_blocks,out_dim", RESMLP_SHAPES)
 @pytest.mark.parametrize("activation", ["relu", "elu"])
 @pytest.mark.parametrize("readout,skip_input,fast", RESMLP_CASES)
 def test_resmlp_kernel_matches_plain(cuda, readout, skip_input, fast,
-                                     activation):
+                                     activation, n, n_blocks, out_dim,
+                                     x_dtype):
     """Kernel vs plain on the card, bf16 weights: 2e-2 x max|ref| (bf16
-    operands; roundings can differ in the last bit)."""
+    operands; roundings can differ in the last bit). The input Dense form
+    takes 379-wide rows (758 or 1516 bytes apart, not 16-byte aligned)."""
     rng = np.random.default_rng(4)
     d_in = None if skip_input else 379
     flat = [_tt(w, torch.bfloat16).to(cuda)
-            for w in _chain(rng, 3, d_in, 4 if readout else None)]
-    x = _tt(rng.normal(size=(1000, HID if skip_input else d_in)),
-            torch.bfloat16).to(cuda)
+            for w in _chain(rng, n_blocks, d_in, out_dim if readout else None)]
+    x = _tt(rng.normal(size=(n, HID if skip_input else d_in)),
+            x_dtype).to(cuda)
     before = RESMLP.counts["resmlp_rows"]
     kw = dict(readout=readout, skip_input=skip_input, fast=fast,
               activation=activation)
-    got = resmlp_rows(x, flat, 3, **kw)
+    got = resmlp_rows(x, flat, n_blocks, **kw)
     torch.cuda.synchronize()
     assert RESMLP.counts["resmlp_rows"] == before + 1
-    want = resmlp_plain(x, flat, 3, **kw)
+    want = resmlp_plain(x, flat, n_blocks, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
     _close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
 
 
+# (queries, n_blocks, out_dim, activation)
+SWG_SHAPES = [(3000, 6, 4, "relu"), (1, 6, 4, "relu"), (65, 0, 1, "elu"),
+              (1000, 1, 8, "elu"), (40000, 2, 4, "relu")]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,n_blocks,out_dim,activation", SWG_SHAPES)
 @pytest.mark.parametrize("head_inside", [True, False])
-def test_swg_kernel_matches_plain(cuda, head_inside):
+def test_swg_kernel_matches_plain(cuda, head_inside, n, n_blocks, out_dim,
+                                  activation):
     """K2 (head inside, bf16 stream) and K3 (head given, f32 stream) vs the
-    plain version: 2e-2 x max|ref| (bf16 operands)."""
+    plain version: 2e-2 x max|ref| (bf16 operands). Queries fall inside,
+    outside and exactly on the image's edges and corners (clamped)."""
     rng = np.random.default_rng(5)
-    n = 3000
-    img, coords, pos, dirs, head_k, head_b, flat = _swg_inputs(
-        rng, n, 48, 64, n_blocks=6, margin=2.0)
+    h, w = 48, 64
+    img, coords, pos, dirs, head_k, head_b, _ = _swg_inputs(
+        rng, n, h, w, n_blocks=0, margin=2.0)
+    edges = np.array([[0, 0], [w - 1, h - 1], [w - 1, 0], [0, h - 1],
+                      [w - 1, 7.5], [3.25, h - 1], [-1, -1], [w, h]],
+                     np.float32)
+    coords[:len(edges)] = edges[:n]
+    flat = _chain(rng, n_blocks, None, out_dim)
     bf = torch.bfloat16
     timg = _tt(img, bf).to(cuda)
     tflat = [_tt(x, bf).to(cuda) for x in flat]
     tc, tp, td = (_tt(a).to(cuda) for a in (coords, pos, dirs))
     hk, hb = _tt(head_k).to(cuda), _tt(head_b).to(cuda)
     if head_inside:
-        args = (timg, tc, tp, td, tflat, 6, hk, hb)
-        kw = {}
+        args = (timg, tc, tp, td, tflat, n_blocks, hk, hb)
+        kw = dict(activation=activation)
     else:
-        args = (timg, tc, None, None, tflat, 6)
-        kw = dict(h0_geo=encode_head(tp, td, hk, hb, bf), fast=False)
+        args = (timg, tc, None, None, tflat, n_blocks)
+        kw = dict(h0_geo=encode_head(tp, td, hk, hb, bf), fast=False,
+                  activation=activation)
     before = sum(SWG.counts.values())
     got = swg_field_rows(*args, **kw)
     torch.cuda.synchronize()
     assert sum(SWG.counts.values()) == before + 1
     want = swg_field_plain(*args, **kw)
+    assert got.shape == want.shape == (n, out_dim)
     _close(got.cpu().numpy(), want.cpu().numpy(), 2e-2)
+
+
+@pytest.mark.gpu
+def test_kernels_take_prebuilt_packs(cuda):
+    """A pack built once (as the serving paths do) gives the kernel the same
+    weights as packing per call: identical outputs."""
+    rng = np.random.default_rng(10)
+    flat = [_tt(w, torch.bfloat16).to(cuda) for w in _chain(rng, 2, None, 4)]
+    x = _tt(rng.normal(size=(300, HID)), torch.bfloat16).to(cuda)
+    pack = pack_chain(flat, 2, readout=True, skip_input=True)
+    kw = dict(readout=True, skip_input=True)
+    assert torch.equal(resmlp_rows(x, flat, 2, **kw, pack=pack),
+                       resmlp_rows(x, flat, 2, **kw))
+    img, coords, pos, dirs, head_k, head_b, _ = _swg_inputs(rng, 300)
+    args = (_tt(img, torch.bfloat16).to(cuda), _tt(coords).to(cuda),
+            _tt(pos).to(cuda), _tt(dirs).to(cuda), flat, 2,
+            _tt(head_k).to(cuda), _tt(head_b).to(cuda))
+    pack = pack_swg(flat, 2, args[6], args[7])
+    assert torch.equal(swg_field_rows(*args, pack=pack), swg_field_rows(*args))
 
 
 @pytest.mark.gpu
@@ -138,6 +186,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):          # hidden width other than 128
         resmlp_rows(_tt(rng.normal(size=(8, 64)), torch.bfloat16).to(cuda),
                     flat, 1, skip_input=True)
+    with pytest.raises(ValueError):          # a pack of other weights
+        resmlp_rows(_tt(rng.normal(size=(8, HID)), torch.bfloat16).to(cuda),
+                    flat, 1, skip_input=True,
+                    pack=pack_chain(flat + flat, 2, skip_input=True))
     assert RESMLP.counts["resmlp_rows"] == before
     flat = [_tt(w, torch.bfloat16).to(cuda) for w in _chain(rng, 1, None, 4)]
     img = torch.zeros((4, 4, HID), dtype=torch.float32, device=cuda)
