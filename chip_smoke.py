@@ -12,8 +12,12 @@ versions bit for bit, serves a
 full 480x640 view of the full-width `nerf_1_view_wo` model (seeded random
 weights) through `render_view` on the fused swg path, the flax
 (`pallas_mlp`) path and the f32 swg path, checks that each path launched its
-kernel and that the output is finite, and prints the times. The last line
-is `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
+kernel and that the output is finite, and prints the times. Last it trains
+the same model (f32, K1' in the chain halves) for 4 steps through
+`tcnerf_torch.train.train_nerf` on a synthetic dataset, holds K1' against
+its plain version and a step with K1' against one with the plain chain,
+and prints step time, memory and a profiled step. The last line is
+`{"ok": true, "device": {...}}`; any failure exits non-zero before it.
 Imports torch and the port only.
 """
 
@@ -35,7 +39,7 @@ N_SAMPLES = 64
 def compare(name, got, want, tol, note):
     """max |got - want| <= tol * max |want| (all f32)."""
     import torch
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
         raise AssertionError(f"{name}: non-finite values")
     err = float((got - want).abs().max())
@@ -473,6 +477,282 @@ def phase_f32(dev, card, scene, launches, n_chunks=4):
     del model
 
 
+# The trainer's configuration is nerf_1_view_wo at full width; the synthetic
+# dataset is cut to 8 scenes x 4 perspectives at 480x640, and the run to 4
+# steps (one epoch of 8 scenes at batch 8 each) and two validation renders.
+TRAIN_CUT = ["dataset.n_perspectives=4", "dataset.n_synthetic_samples=8",
+             "nerf_training.n_epochs=4", "nerf_training.eval_after_epochs=4",
+             "valid_sample_idx=0", "valid_perspective_src_indices=[0]",
+             "valid_perspective_tgt_idx=2"]
+
+
+def check_k1_diff(dev, card):
+    """K1' at a training chunk's shapes (128 rays x batch 8 = 1024 rays; 64
+    coarse, 128 fine samples; f32 stream, a 3-block chain half): the forward
+    against the plain chain on the same bf16 weight copies, the backward
+    against autograd through the plain chain (the same code: bit for bit),
+    then the kernel's forward, the plain forward and the backward timed."""
+    import torch
+    from tcnerf_torch.ops.resmlp import (pack_chain, resmlp_plain,
+                                         resmlp_rows, resmlp_rows_diff)
+    from tcnerf_torch.tools.common import bound_ms, time_ms
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    w = []
+    for _ in range(6):                  # 3 blocks of two 128x128 layers
+        w += [torch.randn((HID, HID), generator=gen, device=dev) * HID ** -0.5,
+              torch.randn((HID,), generator=gen, device=dev) * 0.1]
+    wb = [t.to(torch.bfloat16) for t in w]
+    pack = pack_chain(w, 3, skip_input=True)
+    res = {}
+    for stage, n in (("coarse", 1024 * N_SAMPLES), ("fine", 2048 * N_SAMPLES)):
+        x = torch.randn((n, HID), generator=gen, device=dev).requires_grad_()
+        ws = [t.clone().requires_grad_() for t in w]
+        out = resmlp_rows_diff(x, ws, 3, skip_input=True, pack=pack)
+        err = compare(f"K1' resmlp_rows_diff forward, {stage} chunk "
+                      f"[{n}x128] f32", out,
+                      resmlp_plain(x.detach(), wb, 3, skip_input=True), 2e-2,
+                      "plain chain on the same bf16 weight copies")
+        g = torch.randn(out.shape, generator=gen, device=dev)
+        got = torch.autograd.grad(out, [x, *ws], g, retain_graph=True)
+        xr = x.detach().requires_grad_()
+        wr = [t.detach().requires_grad_() for t in w]
+        want = torch.autograd.grad(resmlp_plain(xr, wr, 3, skip_input=True),
+                                   [xr, *wr], g)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        print(f"check K1' resmlp_rows_diff backward, {stage} chunk: dx and "
+              f"{len(ws)} weight grads vs autograd through the plain chain: "
+              f"{'bit-exact OK' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError("K1' backward differs from the plain grads")
+        res[stage] = dict(
+            err=err, n=n,
+            ms=time_ms(lambda: resmlp_rows(x.detach(), wb, 3, skip_input=True,
+                                           pack=pack), dev, 10),
+            plain_ms=time_ms(lambda: resmlp_plain(x.detach(), wb, 3,
+                                                  skip_input=True), dev, 3),
+            backward_ms=time_ms(lambda: torch.autograd.grad(
+                out, [x, *ws], g, retain_graph=True), dev, 5),
+            bound=bound_ms(2 * n * 6 * HID * HID, 2 * n * HID * 4))
+        r = res[stage]
+        print(f"time K1' {stage} chunk [{n}x128]: forward (K1) {r['ms']:.4f} "
+              f"ms, backward (plain recompute + grads) {r['backward_ms']:.4f}"
+              f" ms (plain forward {r['plain_ms']:.4f} ms, forward bound "
+              f"{r['bound'][0]:.4f} ms by {r['bound'][1]}) [{card}]")
+        del x, ws, out, got, want
+    fine = res["fine"]
+    return dict(err=max(r["err"] for r in res.values()), ms=fine["ms"],
+                coarse_ms=res["coarse"]["ms"], plain_ms=fine["plain_ms"],
+                backward_ms=fine["backward_ms"],
+                coarse_backward_ms=res["coarse"]["backward_ms"],
+                bound=fine["bound"])
+
+
+def train_grads(model, batch, draws, term):
+    """Loss and gradients of one step's `term`: "step" (the trainer's
+    chunked loss), "coarse" or "fine" (one MSE term, unchunked)."""
+    from tcnerf_torch.models import training as T
+
+    model.zero_grad(set_to_none=True)
+    if term == "step":
+        loss = T.nerf_loss(model, *batch, *draws)
+    else:
+        inputs, labels = batch
+        rgb, _, fine_rgb, _, _ = model(inputs, *draws)
+        loss = T.mse(labels, rgb if term == "coarse" else fine_rgb)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def grad_gap(got, want):
+    """Two gradients' relative L2 distance over all tensors, and per group
+    of parameters (top-level module) the largest max|got - want| / max|want|
+    of a tensor (tensors whose gradient is zero in exact arithmetic, below
+    1e-6 of the largest, left out)."""
+    import torch
+    a = torch.cat([got[n].flatten() for n in want]).double()
+    b = torch.cat([want[n].flatten() for n in want]).double()
+    top = float(b.abs().max())
+    worst = {}
+    for n, w in want.items():
+        scale = float(w.abs().max())
+        if scale > 1e-6 * top:
+            group = n.split(".")[0]
+            worst[group] = max(worst.get(group, 0.0),
+                               float((got[n] - w).abs().max()) / scale)
+    return float((a - b).norm() / b.norm()), worst
+
+
+def compare_train_paths(kernel_model, plain_model, rounded_model, batch,
+                        draws):
+    """The repair's check: the same weights, batch and draws with
+    pallas_mlp (K1') and with the plain chain.
+
+    The step: loss within 2e-2 relative, and every parameter with a
+    non-zero plain gradient gets a finite, non-zero gradient through K1'.
+    Each parameter's gradient at the bf16 bar, 2e-2 x max |plain grad| of
+    the tensor (+1e-6 x the largest plain gradient of the term, for the
+    gradients that are zero in exact arithmetic: biases before a
+    batch-statistics norm, attention key biases), in a loss term whose
+    path to it does not cross the inverse-CDF resampling: the coarse MSE
+    for the coarse field and the encoder, the fine MSE for the fine field.
+    Through the resampling the step's gradient is ill-conditioned: it
+    divides by CDF gaps down to 1e-5, so a bf16-sized change of the
+    forward moves it by several percent. That is printed beside the same
+    distance for the plain chain run on its weights rounded to bf16
+    (`rounded_model`)."""
+    import torch
+
+    (lk, gk), (lp, gp) = (train_grads(m, batch, draws, "step")
+                          for m in (kernel_model, plain_model))
+    rel = abs(lk - lp) / abs(lp)
+    print(f"check train step pallas_mlp vs plain chain: loss {lk:.6f} vs "
+          f"{lp:.6f} (rel {rel:.3g}, limit 2e-2) "
+          f"{'OK' if rel <= 2e-2 else 'FAIL'}")
+    if not rel <= 2e-2:
+        raise AssertionError("train loss with K1' disagrees with the plain "
+                             "chain")
+    dead = [n for n, want in gp.items() if float(want.abs().max()) > 0
+            and (n not in gk or not torch.isfinite(gk[n]).all()
+                 or not float(gk[n].abs().max()) > 0)]
+    n_live = sum(float(w.abs().max()) > 0 for w in gp.values())
+    print(f"check train step gradients through K1': {n_live - len(dead)} of "
+          f"{n_live} parameters with a non-zero plain gradient get a finite,"
+          f" non-zero one {'OK' if not dead else 'FAIL'}")
+    if dead:
+        raise AssertionError(f"no gradient through K1' for {dead[:5]}")
+    _, gr = train_grads(rounded_model, batch, draws, "step")
+    for tag, got in (("K1'", gk), ("the plain chain on bf16-rounded chain "
+                                   "weights", gr)):
+        l2, worst = grad_gap(got, gp)
+        print(f"train step gradients, {tag} vs the plain chain: relative L2 "
+              f"{l2:.4g}; worst tensor max err / max per group: "
+              + ", ".join(f"{g} {q:.3g}" for g, q in worst.items()))
+    for term, prefixes in (("coarse", ("coarse_", "visual_features")),
+                           ("fine", ("fine_",))):
+        (_, gk), (_, gp) = (train_grads(m, batch, draws, term)
+                            for m in (kernel_model, plain_model))
+        floor = 1e-6 * max(float(g.abs().max()) for g in gp.values())
+        worst, bad = [], []
+        for name, want in gp.items():
+            if not name.startswith(prefixes):
+                continue
+            limit = 2e-2 * float(want.abs().max()) + floor
+            err = float((gk[name] - want).abs().max())
+            worst.append((err / limit, name))
+            if not err <= limit:
+                bad.append(f"{name}: max err {err:.3g} > {limit:.3g}")
+        worst.sort(reverse=True)
+        print(f"check train {term}-MSE gradients pallas_mlp vs plain, "
+              f"{len(worst)} parameters at 2e-2 x max|ref|: worst err/limit "
+              + ", ".join(f"{n} {q:.3g}" for q, n in worst[:3])
+              + (" OK" if not bad else " FAIL"))
+        if bad:
+            raise AssertionError(f"{term}-MSE gradients through K1' disagree:"
+                                 " " + "; ".join(bad[:5]))
+
+
+def phase_train(dev, card, launches):
+    """`train_nerf._main` (the port's trainer entry) at the full nerf_1_view_wo
+    width (f32, pallas_mlp + remat, 4-tap gather) on a synthetic dataset
+    (TRAIN_CUT): 4 steps and two validation renders with the counts set to 0
+    before and read after. Then one instrumented step (K1' launches in the
+    forward and in the backward's recompute), one profiled step, the
+    encoder's forward + backward alone, and the K1' vs plain-chain step."""
+    import numpy as np
+    import torch
+    from tcnerf_torch.data.generators import MVNeRFDataGenerator, to_device
+    from tcnerf_torch.data.loaders import load_dataset_nerf
+    from tcnerf_torch.models import training as T
+    from tcnerf_torch.ops.resmlp import RESMLP
+    from tcnerf_torch.tools.common import time_ms
+    from tcnerf_torch.train import config, train_nerf
+
+    kres = check_k1_diff(dev, card)
+    data_dir = REPO / "build" / "chip_smoke_train"
+    cfg = config.load_config([f"data_dir={data_dir}", *TRAIN_CUT])
+    print(f"train: nerf_1_view_wo at full width (ViT-B/16 224^2, n_features "
+          f"256, hidden 128, 6 blocks, 64+64 samples, 512 rays x batch 8, "
+          f"480x640 sources), f32, seeded random weights; cut: {TRAIN_CUT}")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (state, history), wall = timed(lambda: train_nerf._main(cfg, dev))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches["K1'"] = counts.get("resmlp_rows_diff", 0)
+    steps = history["steps"]
+    print(f"train run: {len(steps)} steps + {len(history['valid'])} "
+          f"validation renders in {wall:.1f} s (dataset synthesis included); "
+          f"launches {dict(counts)}; peak memory allocated "
+          f"{peak / 2 ** 30:.2f} GiB [{card}]")
+    for s in steps:
+        print(f"train step {s['step']}: loss {s['loss']:.6f}, "
+              f"{s['step_s'] * 1e3:.1f} ms (batch synthesis "
+              f"{s['data_s'] * 1e3:.1f} ms) [{card}]")
+    if not all(np.isfinite(s["loss"]) for s in steps) or len(steps) != 4:
+        raise AssertionError("train losses not finite (or not 4 steps)")
+    if launches["K1'"] == 0:
+        raise AssertionError("training did not launch K1'")
+    steady = float(np.median([s["step_s"] for s in steps[1:4]]))
+    model = state.model
+    b, r = cfg.nerf_training.batch_size, cfg.nerf_model.n_rays_train
+    samples = 2 * model.n_samples + model.n_samples   # coarse + fine fields
+    builds = (model.coarse_embedding.pack_builds
+              + model.fine_embedding.pack_builds)
+    print(f"train steady step (median of steps 2-4): {steady * 1e3:.1f} ms, "
+          f"{b * r / steady:.0f} rays/s, {b * r * samples / steady:.0f}"
+          f" samples/s; K1 packs built {builds} times in {len(steps)} steps "
+          f"(both embeddings) [{card}]")
+    for epoch, value in history["valid"]:
+        print(f"train validation after epoch {epoch}: PSNR {value:.3f} dB")
+        if not np.isfinite(value):
+            raise AssertionError("validation PSNR not finite")
+
+    ds = load_dataset_nerf(cfg.dataset.n_perspectives,
+                           f"{cfg.dataset.path}/train")
+    batch = to_device(*MVNeRFDataGenerator(
+        ds, n_rays_train=r, batch_size=b, n_views=1, rng=1)[0], dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    draws = T.draw_samples(model, b, r, gen, dev)
+    reset_counts()
+    loss = T.nerf_loss(model, *batch, *draws)
+    torch.cuda.synchronize()
+    n_fwd = RESMLP.counts["resmlp_rows_diff"]
+    loss.backward()
+    torch.cuda.synchronize()
+    n_rec = RESMLP.counts["resmlp_rows_diff"] - n_fwd
+    print(f"train K1' launches per step: forward {n_fwd}, backward's "
+          f"recompute {n_rec} (chunk checkpoint + embedding remat)")
+    device_time_by_kernel(lambda: T.nerf_train_step(state, *batch, gen),
+                          card, top=10)
+    flat = batch[0][2].reshape((-1,) + batch[0][2].shape[2:])
+    g_out = None
+
+    def encoder():
+        nonlocal g_out
+        combined, _ = model.combine_features(flat)
+        if g_out is None:
+            g_out = torch.randn(combined.shape, generator=gen, device=dev)
+        combined.backward(g_out)
+
+    enc_ms = time_ms(encoder, dev, 3)
+    print(f"train encoder (combine_features) forward + backward alone: "
+          f"{enc_ms:.1f} ms, {100 * enc_ms / (steady * 1e3):.1f}% of the "
+          f"steady step [{card}]")
+    del g_out
+    plain_cfg = config.load_config([f"data_dir={data_dir}", *TRAIN_CUT,
+                                    "nerf_model.pallas_mlp=false"])
+    plain, rounded = (train_nerf.build_model(plain_cfg, dev) for _ in "ab")
+    plain.load_state_dict(model.state_dict())
+    rounded.load_state_dict({
+        k: v.bfloat16().float() if "embedding" in k and "_block_" in k else v
+        for k, v in model.state_dict().items()})
+    compare_train_paths(model, plain, rounded, batch, draws)
+    return {"K1'": kres}
+
+
 KERNELS = {
     "K1": dict(name="resmlp_rows", source="tcnerf_torch/csrc/resmlp.cu",
                replaces="tcnerf/ops/pallas/resmlp.py:137",
@@ -484,6 +764,11 @@ KERNELS = {
     "K3": dict(name="swg_gather_mlp", source="tcnerf_torch/csrc/swg.cu",
                replaces="tcnerf/ops/pallas/swg.py:362",
                mode="head given, f32 stream, fine stage 1048576 queries"),
+    "K1'": dict(name="resmlp_rows_diff", source="tcnerf_torch/csrc/resmlp.cu",
+                replaces="tcnerf/ops/pallas/resmlp.py:180",
+                mode="training: K1 forward (f32 stream, f32 in/out, bf16 "
+                     "weight copies, 3-block chain half), fine chunk "
+                     "131072x128; backward plain (recompute + autograd)"),
 }
 
 
@@ -500,7 +785,7 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from tcnerf_torch.data.cameras import camera_ring
+    from tcnerf_torch.data.synthetic import camera_ring
     from tcnerf_torch.device import resolve_device
     from tcnerf_torch.tools.common import device_line
 
@@ -522,6 +807,7 @@ def main(argv) -> int:
     phase_f32(dev, card, scene, launches)
     # after the serving phases, which thus run as they did before it existed
     kres.update(phase_gather(dev, card, launches))
+    kres.update(phase_train(dev, card, launches))
     rows = []
     for k, r in kres.items():          # K1-K3, then K4-K13 from the tools
         meta = KERNELS.get(k, r)
@@ -532,7 +818,10 @@ def main(argv) -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],
                      # no single PyTorch call computes K1-K3's fused chain
-                     "library_ms": r.get("library_ms")})
+                     "library_ms": r.get("library_ms"),
+                     **{key: r[key] for key in ("coarse_ms", "backward_ms",
+                                                "coarse_backward_ms")
+                        if key in r}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

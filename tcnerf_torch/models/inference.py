@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..core.rays import get_rays
-from ..data.cameras import camera_parameters
+from ..data.generators import camera_parameters
 from ..device import resolve_device
 from .fused import swg_prepare, swg_render_chunk
 

@@ -10,6 +10,11 @@ NotImplementedError until their slices are ported.
 Sampling draws: `render_rays` takes the coarse jitter and the PDF uniforms
 as optional explicit tensors (`u_coarse` [B, R, S], `u_fine` [B, R, S]);
 otherwise it draws them from `generator`.
+
+`remat` checkpoints the two embeddings and `VisualFeatures` while autograd
+records (torch.utils.checkpoint): their activations are recomputed in the
+backward instead of stored, as the flax module's `nn.remat` does. Neither
+draws random numbers, so the recompute sees the forward's values.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core import projection, render, sampling
 from ..nn.blocks import RenderReadout
@@ -59,8 +65,7 @@ class MVNeRFRenderer(nn.Module):
             raise NotImplementedError(f"field={field!r} is not ported yet")
         if fusion != "without":
             raise NotImplementedError(f"fusion={fusion!r} is not ported yet")
-        # clip_* / hashgrid_* / fusion_* knobs configure parts not ported
-        # yet; remat only matters for training
+        # clip_* / hashgrid_* / fusion_* knobs configure parts not ported yet
         self.n_views = n_views
         self.n_samples = n_samples
         self.n_features = n_features
@@ -72,6 +77,7 @@ class MVNeRFRenderer(nn.Module):
         self.hidden_size = hidden_size
         self.corner_gather = corner_gather
         self.pallas_mlp = pallas_mlp
+        self.remat = remat
         self.dtype = _dtype(dtype)
         self.encoder_dtype = _dtype(encoder_dtype)
         kw = dict(n_input_features=n_features + 3, n_blocks=n_blocks,
@@ -90,9 +96,15 @@ class MVNeRFRenderer(nn.Module):
 
     # ------------------------------------------------------------ features
 
+    def _remat(self, module, *args):
+        """module(*args), checkpointed under `remat` while autograd records."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
+
     def encode(self, src_images_flat: torch.Tensor) -> torch.Tensor:
         """[B*V, H, W, 3] -> visual features [B*V, H/2, W/2, n_features]."""
-        out = self.visual_features(src_images_flat)
+        out = self._remat(self.visual_features, src_images_flat)
         if self.encoder_dtype is not None:
             out = out.to(self.dtype or torch.float32)
         return out
@@ -172,8 +184,8 @@ class MVNeRFRenderer(nn.Module):
         def flat(x):
             return x.reshape((b * v, r, s, x.shape[-1]))
 
-        emb = embedding(flat(cam_points[..., :3]), flat(dirs), flat(feats),
-                        corner_img is not None)
+        emb = self._remat(embedding, flat(cam_points[..., :3]), flat(dirs),
+                          flat(feats), corner_img is not None)
         return readout(emb)
 
     def forward(self, inputs, u_coarse=None, u_fine=None, generator=None):

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ..core.encoding import positional_encoding
-from ..ops.resmlp import pack_chain, resmlp_rows
+from ..ops.resmlp import pack_chain, resmlp_rows_diff
 from .blocks import ResNetMLPBlock
 from .layers import Dense, _compute_dtype
 
@@ -50,8 +50,10 @@ class MVResNetMLPEmbedding(nn.Module):
     `n_input_features` is the raw per-sample feature width (n_features + 3
     RGB); layer_0 is always a `SliceableDense` (the flax parameter tree is
     the same with and without the slice). `use_pallas` runs both chain
-    halves through the fused resmlp kernel (ops/resmlp.py); on the card that
-    kernel takes bf16 weights, i.e. a bf16 model."""
+    halves through `resmlp_rows_diff` (K1', ops/resmlp.py): the fused kernel
+    forward on the card, from bf16 copies of the weights whatever the model
+    dtype, and a backward through the plain chain. `pack_builds` counts how
+    often the kernel's packed weights were (re)built."""
 
     def __init__(self, n_input_features: int, n_blocks: int = 6,
                  hidden_size: int = 128, n_views: int = 2, n_freq: int = 10,
@@ -66,6 +68,7 @@ class MVResNetMLPEmbedding(nn.Module):
         self.embed_direction_vector = embed_direction_vector
         self.complete_output = complete_output
         self.use_pallas = use_pallas
+        self.pack_builds = 0
         pd = 6 * n_freq + (6 * n_freq if embed_direction_vector else 3)
         self.layer_0 = SliceableDense(pd + n_input_features, hidden_size,
                                       split=pd, dtype=dtype)
@@ -122,28 +125,32 @@ class MVResNetMLPEmbedding(nn.Module):
 
     def _chain_packs(self, flats, dt):
         """The kernel's packed weights of both halves, built once and again
-        only when a parameter is replaced or changed in place."""
+        only when a parameter is replaced or changed in place (an optimizer
+        step moves every parameter's `_version`: one build per step)."""
         key = (dt, tuple((p.data_ptr(), p._version) for p in self.parameters()))
         if getattr(self, "_packs_key", None) != key:
             dev = next(self.parameters()).device
-            self._packs = tuple(pack_chain(f, len(f) // 4, skip_input=True,
-                                           device=dev) for f in flats)
+            with torch.no_grad():
+                self._packs = tuple(pack_chain(f, len(f) // 4,
+                                               skip_input=True, device=dev)
+                                    for f in flats)
             self._packs_key = key
+            self.pack_builds += 1
         return self._packs
 
     def _pallas_chain(self, x):
-        """Both chain halves through the fused kernel, with the mean view
+        """Both chain halves through K1' (differentiable), with the mean view
         fusion between them; the stream is f32 inside the kernel."""
         dt = x.dtype
         flats = [self._chain_flat(self.feature_blocks, dt),
                  self._chain_flat(self.fusion_blocks, dt)]
-        packs = (self._chain_packs(flats, dt) if x.is_cuda else (None, None))
+        packs = self._chain_packs(flats, dt) if x.is_cuda else (None, None)
         shape = x.shape
-        h1 = resmlp_rows(x.reshape(-1, shape[-1]).contiguous(), flats[0],
-                         len(self.feature_blocks), skip_input=True,
-                         pack=packs[0]).reshape(shape)
+        h1 = resmlp_rows_diff(x.reshape(-1, shape[-1]).contiguous(),
+                              flats[0], len(self.feature_blocks),
+                              skip_input=True, pack=packs[0]).reshape(shape)
         fused = h1.reshape((-1, self.n_views) + shape[1:]).mean(dim=1)
-        h2 = resmlp_rows(fused.reshape(-1, shape[-1]).contiguous(), flats[1],
-                         len(self.fusion_blocks), skip_input=True,
-                         pack=packs[1])
+        h2 = resmlp_rows_diff(fused.reshape(-1, shape[-1]).contiguous(),
+                              flats[1], len(self.fusion_blocks),
+                              skip_input=True, pack=packs[1])
         return h2.reshape(fused.shape)

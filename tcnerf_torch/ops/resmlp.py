@@ -7,7 +7,8 @@ Flat weights follow the JAX package's layout: `[w0 [in, out], b0]` unless
 `[128]`), then `[w_r [128, out], b_r]` if `readout`.
 
 Numerics (both versions, as `chain_math`): every product casts its input to
-the weight dtype and accumulates in f32, then adds the bias in f32. With
+the weight dtype and accumulates in f32, then adds the bias in f32 (the
+plain version accumulates f64 weights in f64). With
 `fast`, each layer output drops back to the weight dtype (the bf16 serving
 stream); otherwise the stream stays f32. The output has x's dtype.
 
@@ -16,6 +17,15 @@ The kernel streams its layers from one packed tensor (`pack_chain`, a
 canonical K-major 128-byte-swizzled layout that wgmma reads from shared
 memory (`swizzle_index`), then the layer's f32 bias. Callers on a hot path
 build the pack once and pass it; without one the wrapper packs per call.
+
+`resmlp_rows_diff` (K1', the port of tcnerf/ops/pallas/resmlp.py:180) is the
+differentiable chain: the kernel forward, and a backward that recomputes
+the chain through `resmlp_plain` and differentiates that, as the JAX
+custom_vjp does through `resmlp_reference`. No backward kernel exists on
+either side. In training the forward takes f32 rows in and out, so bytes
+bound it (0.040 ms at a chunk's 131,072 rows on an H100; it runs in about
+0.07 ms); the plain backward, f32 GEMMs, takes about 4.5 ms there
+(PERF.md, measured by chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -47,8 +57,14 @@ def _act(activation: str):
     raise ValueError(f"activation {activation} not supported")
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """Accumulation dtype: f32, or f64 for f64 weights (reference runs)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _mm(r, w, b, fast: bool):
-    out = r.to(w.dtype).float() @ w.float() + b.float()
+    acc = _acc(w.dtype)
+    out = r.to(w.dtype).to(acc) @ w.to(acc) + b.to(acc)
     return out.to(w.dtype) if fast else out
 
 
@@ -59,7 +75,7 @@ def resmlp_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """Plain PyTorch version of the chain. x: [N, D_in] -> [N, H or out]."""
     act = _act(activation)
     if skip_input:
-        h, idx = (x if fast else x.float()), 0
+        h, idx = (x if fast else x.to(_acc(x.dtype))), 0
     else:
         h, idx = _mm(x, weights[0], weights[1], fast), 2
     for _ in range(n_blocks):
@@ -213,3 +229,48 @@ def resmlp_rows(x: torch.Tensor, weights: Sequence[torch.Tensor],
                 stream_handle(x.device))
     RESMLP.counts["resmlp_rows"] += 1
     return out
+
+
+class _ResMLPDiff(torch.autograd.Function):
+    """K1': kernel forward (f32 stream), plain recompute backward."""
+
+    @staticmethod
+    def forward(ctx, x, n_blocks, readout, activation, skip_input, pack,
+                *weights):
+        ctx.cfg = (n_blocks, readout, activation, skip_input)
+        ctx.save_for_backward(x, *weights)
+        if x.device.type == "cpu":
+            return resmlp_plain(x, weights, n_blocks, readout, activation,
+                                skip_input)
+        # the kernel reads bf16 copies of the weights (from `pack`)
+        out = resmlp_rows(x, [w.to(torch.bfloat16) for w in weights],
+                          n_blocks, readout, activation, skip_input,
+                          pack=pack)
+        RESMLP.counts["resmlp_rows_diff"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, *weights = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip([x, *weights], [ctx.needs_input_grad[0]]
+                      + list(ctx.needs_input_grad[6:]))]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = resmlp_plain(inputs[0], inputs[1:], *ctx.cfg)
+            grads = iter(torch.autograd.grad(out, wanted, grad.to(out.dtype)))
+        dx, *dw = [next(grads) if t.requires_grad else None for t in inputs]
+        return (dx, None, None, None, None, None, *dw)
+
+
+def resmlp_rows_diff(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                     n_blocks: int, readout: bool = False,
+                     activation: str = "relu", skip_input: bool = False,
+                     pack: Optional[ChainPack] = None) -> torch.Tensor:
+    """Differentiable `resmlp_rows` (f32 stream): forward through the kernel
+    on a CUDA tensor (from `pack`, the weights' bf16 copies), through
+    `resmlp_plain` on a CPU tensor; backward in both cases through
+    `resmlp_plain` with the weights as given (f32 for an f32 model), as
+    tcnerf/ops/pallas/resmlp.py `_resmlp_diff_bwd` does."""
+    return _ResMLPDiff.apply(x, n_blocks, readout, activation, skip_input,
+                             pack, *weights)

@@ -1,4 +1,4 @@
-"""tcnerf_torch core/, ops/interpolate, ops/sortmerge and data/cameras
+"""tcnerf_torch core/, ops/interpolate, ops/sortmerge and the camera helpers
 against their tcnerf counterparts on the same numpy inputs.
 
 Tolerance: 1e-5 absolute/relative on f32 geometry, where both sides run the
@@ -22,7 +22,7 @@ from tcnerf.data import synthetic as jsyn
 from tcnerf.ops import interpolate as jinterp
 from tcnerf.ops import sortmerge as jsort
 from tcnerf_torch.core import encoding, projection, rays, render, sampling
-from tcnerf_torch.data import cameras
+from tcnerf_torch.data import generators, synthetic
 from tcnerf_torch.ops import interpolate, sortmerge
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -175,10 +175,10 @@ def test_sort_and_merge():
 
 
 def test_camera_helpers():
-    for got, want in zip(cameras.camera_ring(5, azimuth_span=1.2),
+    for got, want in zip(synthetic.camera_ring(5, azimuth_span=1.2),
                          jsyn.camera_ring(5, azimuth_span=1.2)):
         np.testing.assert_array_equal(got["pose"], want["pose"])
         np.testing.assert_array_equal(got["intrinsics"], want["intrinsics"])
-        for a, b in zip(cameras.camera_parameters(got),
+        for a, b in zip(generators.camera_parameters(got),
                         jgen.camera_parameters(want)):
             np.testing.assert_array_equal(a, b)

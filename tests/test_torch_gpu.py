@@ -17,8 +17,12 @@ from tcnerf_torch.ops.gather import (GATHER, gather_lanes, gather_lanes_plain,
                                      gather_onehot, gather_onehot_plain,
                                      gather_rows, gather_rows_plain,
                                      gather_rows_window)
+from tcnerf_torch.models import training
+from tcnerf_torch.models.renderer import MVNeRFRenderer
+from tcnerf_torch.nn.mlp import MVResNetMLPEmbedding
 from tcnerf_torch.ops.resmlp import (RESMLP, pack_chain, resmlp_plain,
-                                     resmlp_rows)
+                                     resmlp_rows, resmlp_rows_diff)
+from tcnerf_torch.params import init_params
 from tcnerf_torch.ops.swg import (SWG, encode_head, pack_swg, swg_field_plain,
                                   swg_field_rows)
 
@@ -49,7 +53,7 @@ def _close(got, want, tol):
 
 
 def _tt(a, dtype=torch.float32):
-    return torch.as_tensor(np.asarray(a, np.float32)).to(dtype)
+    return torch.as_tensor(np.array(a, np.float32)).to(dtype)
 
 
 def _swg_inputs(rng, n, h=16, w=24, n_blocks=2, margin=0.0):
@@ -291,3 +295,130 @@ def test_gather_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         with pytest.raises(ValueError):
             fn(data, ix)
     assert dict(GATHER.counts) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("skip_input,readout", [(True, False), (False, True)])
+def test_resmlp_rows_diff_matches_plain(cuda, dtype, skip_input, readout):
+    """K1' on the card. Forward: the kernel (one launch) vs the plain chain
+    on the weights' bf16 copies, 2e-2 x max|ref|. Backward: autograd
+    through the plain chain with the weights as given, bit for bit (the
+    same code on the same inputs)."""
+    rng = np.random.default_rng(11)
+    d_in = None if skip_input else 379
+    flat = [_tt(w, dtype).to(cuda)
+            for w in _chain(rng, 3, d_in, 4 if readout else None)]
+    x = _tt(rng.normal(size=(1000, d_in or HID)), dtype).to(cuda)
+    x.requires_grad_()
+    ws = [w.clone().requires_grad_() for w in flat]
+    kw = dict(readout=readout, skip_input=skip_input)
+    before = RESMLP.counts["resmlp_rows_diff"]
+    out = resmlp_rows_diff(x, ws, 3, **kw)
+    torch.cuda.synchronize()
+    assert RESMLP.counts["resmlp_rows_diff"] == before + 1
+    want = resmlp_plain(x.detach(), [w.to(torch.bfloat16) for w in flat], 3,
+                        **kw)
+    assert out.dtype == dtype and out.shape == want.shape
+    _close(out.detach().float().cpu().numpy(), want.float().cpu().numpy(),
+           2e-2)
+    g = torch.randn(out.shape, device=cuda, dtype=dtype)
+    got = torch.autograd.grad(out, [x, *ws], g)
+    xr = x.detach().requires_grad_()
+    wr = [w.detach().requires_grad_() for w in flat]
+    ref = torch.autograd.grad(resmlp_plain(xr, wr, 3, **kw), [xr, *wr], g)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_embedding_pallas_trains_every_parameter(cuda, dtype):
+    """MVResNetMLPEmbedding(use_pallas=True) on the card, f32 and bf16
+    models: both chain halves launch K1', and every parameter gets a
+    finite, non-zero gradient that agrees with use_pallas=False at the bf16
+    bar (2e-2, relative and x max|ref|): K1' reads bf16 weights and keeps
+    an f32 stream."""
+    rng = np.random.default_rng(12)
+    pos = _tt(rng.normal(size=(4, 32, 16, 3)) * 0.5).to(cuda)
+    dirs = _tt(rng.normal(size=(4, 32, 16, 3)) * 0.5).to(cuda)
+    feats = _tt(rng.normal(size=(4, 32, 16, 32))).to(cuda)
+    grads = []
+    for use_pallas in (False, True):
+        m = MVResNetMLPEmbedding(32, n_blocks=6, hidden_size=HID, n_views=2,
+                                 embed_direction_vector=True,
+                                 use_pallas=use_pallas, dtype=dtype).to(cuda)
+        init_params(m, torch.Generator(device=cuda).manual_seed(0))
+        before = RESMLP.counts["resmlp_rows_diff"]
+        torch.mean(m(pos, dirs, feats).float() ** 2).backward()
+        torch.cuda.synchronize()
+        assert RESMLP.counts["resmlp_rows_diff"] == before + 2 * use_pallas
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    for name, want in grads[0].items():
+        got = grads[1][name]
+        assert got is not None and torch.isfinite(got).all(), name
+        assert float(got.abs().max()) > 0, name
+        _close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+
+
+def _tiny_renderer(device, **kw):
+    m = MVNeRFRenderer(n_views=1, n_samples=8, n_features=8, near=0.3,
+                       far=1.3, original_image_size=(16, 24),
+                       fusion="without", n_blocks=2, hidden_size=HID,
+                       vit_size=(32, 32), vit_dim=32, vit_heads=2,
+                       vit_hooks=(1, 2, 3, 4), corner_gather=False, **kw)
+    m = m.to(device)
+    init_params(m, torch.Generator(device=device).manual_seed(0))
+    return m
+
+
+def recompute_inputs(device, dtype=torch.float32):
+    """A checkpointed chunked loss (the trainer's: draws taken before the
+    chunks) on a tiny renderer with pallas_mlp, run forward and backward.
+    Returns the fine embedding's inputs per chunk in the forward and in the
+    backward's recompute (put back in chunk order: the recompute runs the
+    chunks last to first), and the K1' launches of each pass. A chunk that
+    drew its own samples would see new ones in the recompute."""
+    m = _tiny_renderer(device, pallas_mlp=True, remat=False).to(dtype)
+    rng = np.random.default_rng(13)
+    b, r = 2, 32
+    from tcnerf_torch.data.synthetic import camera_ring
+    from tcnerf_torch.core.rays import get_specific_rays
+    src_cfg, tgt_cfg = camera_ring(2, height=16, width=24, azimuth_span=0.6)
+    ro, rd = get_specific_rays(rng.uniform(0, 23, b * r),
+                               rng.uniform(0, 15, b * r), tgt_cfg["pose"],
+                               tgt_cfg["intrinsics"].reshape(3, 3))
+    k4 = np.eye(4)
+    k4[:3, :3] = src_cfg["intrinsics"].reshape(3, 3)
+    inputs = tuple(_tt(a, dtype).to(device) for a in (
+        ro.reshape(b, r, 3), rd.reshape(b, r, 3),
+        rng.uniform(size=(b, 1, 16, 24, 3)), np.tile(k4, (b, 1, 1, 1)),
+        np.tile(np.linalg.inv(src_cfg["pose"]), (b, 1, 1, 1))))
+    labels = _tt(rng.uniform(size=(b, r, 3)), dtype).to(device)
+    draws = tuple(u.to(dtype) for u in training.draw_samples(
+        m, b, r, torch.Generator(device=device).manual_seed(1), device))
+    seen = {"forward": [], "backward": []}
+    phase = ["forward"]
+    m.fine_embedding.register_forward_hook(
+        lambda mod, args, out: seen[phase[0]].append(args[0].detach().clone()))
+    before = RESMLP.counts["resmlp_rows_diff"]
+    loss = training.nerf_loss(m, inputs, labels, *draws, ray_chunk=8)
+    n_fwd = RESMLP.counts["resmlp_rows_diff"] - before
+    phase[0] = "backward"
+    loss.backward()
+    n_bwd = RESMLP.counts["resmlp_rows_diff"] - before - n_fwd
+    assert len(seen["forward"]) == len(seen["backward"]) == r // 8
+    assert all(torch.isfinite(p.grad).all() for p in m.parameters())
+    return seen["forward"], seen["backward"][::-1], n_fwd, n_bwd
+
+
+@pytest.mark.gpu
+def test_checkpointed_chunk_recompute_uses_the_same_draws(cuda):
+    """On the card with K1': the recompute sees the forward's samples bit
+    for bit (the same kernels on the same inputs), and launches K1' as
+    often as the forward (4 chunks x 2 stages x 2 halves)."""
+    fwd, bwd, n_fwd, n_bwd = recompute_inputs(cuda)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, bwd))
+    assert (n_fwd, n_bwd) == (16, 16)

@@ -14,7 +14,7 @@ import torch
 from tcnerf.models import fused as jfused
 from tcnerf.models import inference as jinf
 from tcnerf.models.renderer import MVNeRFRenderer as FlaxRenderer
-from tcnerf_torch.data.cameras import camera_ring
+from tcnerf_torch.data.synthetic import camera_ring
 from tcnerf_torch.models import fused, inference
 from tcnerf_torch.models.renderer import MVNeRFRenderer
 from tcnerf_torch.ops.swg import SWG
