@@ -166,19 +166,16 @@ def nerf_loss(model: nn.Module, inputs, labels: torch.Tensor,
 
 def nerf_train_step(state: TrainState, inputs, labels: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
-                    ray_chunk: Optional[int] = None,
-                    draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                    ray_chunk: Optional[int] = None):
     """One optimisation step: loss = MSE(coarse) + MSE(fine) (+ aux).
 
     inputs = (ray_o [B, R, 3], ray_d, src_images [B, V, H, W, 3],
     intrinsics [B, V, 4, 4], extrinsics_inv) and labels [B, R, 3] on the
-    model's device. `draws` = (u_coarse, u_fine) [B, R, S]; drawn from
-    `generator` when not given. Returns (state, {"loss": loss before the
-    update, a device scalar})."""
+    model's device; the samples' uniforms are drawn from `generator`.
+    Returns (state, {"loss": loss before the update, a device scalar})."""
     model = state.model
     b, r = inputs[0].shape[:2]
-    if draws is None:
-        draws = draw_samples(model, b, r, generator, inputs[0].device)
+    draws = draw_samples(model, b, r, generator, inputs[0].device)
     state.optimizer.zero_grad()
     loss = nerf_loss(model, inputs, labels, *draws, ray_chunk=ray_chunk)
     loss.backward()

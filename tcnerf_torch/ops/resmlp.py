@@ -8,7 +8,9 @@ Flat weights follow the JAX package's layout: `[w0 [in, out], b0]` unless
 
 Numerics (both versions, as `chain_math`): every product casts its input to
 the weight dtype and accumulates in f32, then adds the bias in f32 (the
-plain version accumulates f64 weights in f64). With
+plain version accumulates f64 weights in f64: the CPU tests compare the
+whole model's f64 gradients with the JAX package's, and on the CPU the
+model's `use_pallas` chain is this function, so it must keep f64). With
 `fast`, each layer output drops back to the weight dtype (the bf16 serving
 stream); otherwise the stream stays f32. The output has x's dtype.
 
@@ -23,9 +25,9 @@ differentiable chain: the kernel forward, and a backward that recomputes
 the chain through `resmlp_plain` and differentiates that, as the JAX
 custom_vjp does through `resmlp_reference`. No backward kernel exists on
 either side. In training the forward takes f32 rows in and out, so bytes
-bound it (0.040 ms at a chunk's 131,072 rows on an H100; it runs in about
-0.07 ms); the plain backward, f32 GEMMs, takes about 4.5 ms there
-(PERF.md, measured by chip_smoke.py).
+bound it (0.040 ms at a chunk's 131,072 rows on an H100; it runs in 0.066
+ms there, timed as a CUDA graph of launches); the plain backward, f32
+GEMMs, takes about 4.5 ms (PERF.md, measured by chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -171,27 +173,18 @@ def pack_chain(weights: Sequence[torch.Tensor], n_blocks: int,
     return ChainPack(pack_ring(mats, biases), wro, bro)
 
 
-def resmlp_rows(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                n_blocks: int, readout: bool = False,
-                activation: str = "relu", skip_input: bool = False,
-                fast: bool = False,
-                pack: Optional[ChainPack] = None) -> torch.Tensor:
-    """The fused chain over rows. A CPU tensor takes `resmlp_plain`; a CUDA
-    tensor launches the kernel (bf16 weights, hidden 128, readout <= 8),
-    from `pack` (`pack_chain` of the same weights) when given."""
-    if x.device.type == "cpu":
-        return resmlp_plain(x, weights, n_blocks, readout, activation,
-                            skip_input, fast)
+def _layout(x: torch.Tensor, weights: Sequence[torch.Tensor], n_blocks: int,
+            readout: bool, skip_input: bool):
+    """Checks x and the weights' count and shapes for a launch; returns
+    (d_in, out_dim): 0 for skip_input / no readout."""
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
     _check(x.dim() == 2 and x.is_contiguous(), "x must be contiguous [N, D]")
     _check(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
     _check(x.dtype in (torch.float32, torch.bfloat16), f"x dtype {x.dtype}")
-    _act(activation)
     n_w = (0 if skip_input else 2) + 4 * n_blocks + (2 if readout else 0)
     _check(len(weights) == n_w, f"expected {n_w} weights, got {len(weights)}")
-    for w in weights:
-        _check(w.device == x.device and w.dtype == torch.bfloat16,
-               "weights must be bf16 on x's device")
+    _check(all(w.device == x.device for w in weights),
+           "weights must be on x's device")
     idx = 0
     if skip_input:
         _check(x.shape[1] == HIDDEN, f"skip_input needs width {HIDDEN}")
@@ -208,8 +201,14 @@ def resmlp_rows(x: torch.Tensor, weights: Sequence[torch.Tensor],
         out_dim = weights[-2].shape[1]
         _check(weights[-2].shape[0] == HIDDEN and 0 < out_dim <= MAX_OUT,
                f"readout must be [128, <= {MAX_OUT}]")
-    if pack is None:
-        pack = pack_chain(weights, n_blocks, readout, skip_input, x.device)
+    return d_in, out_dim
+
+
+def _launch(x: torch.Tensor, pack: ChainPack, d_in: int, n_blocks: int,
+            out_dim: int, activation: str, skip_input: bool,
+            fast: bool) -> torch.Tensor:
+    """Launches the kernel on checked inputs (`_layout`) and counts it."""
+    _act(activation)
     n_layers = -(-d_in // HIDDEN) + 2 * n_blocks
     _check(pack.ring.device == x.device and pack.ring.is_contiguous()
            and pack.ring.shape == (max(n_layers, 1), STAGE_BYTES)
@@ -231,6 +230,26 @@ def resmlp_rows(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return out
 
 
+def resmlp_rows(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                n_blocks: int, readout: bool = False,
+                activation: str = "relu", skip_input: bool = False,
+                fast: bool = False,
+                pack: Optional[ChainPack] = None) -> torch.Tensor:
+    """The fused chain over rows. A CPU tensor takes `resmlp_plain`; a CUDA
+    tensor launches the kernel (bf16 weights, hidden 128, readout <= 8),
+    from `pack` (`pack_chain` of the same weights) when given."""
+    if x.device.type == "cpu":
+        return resmlp_plain(x, weights, n_blocks, readout, activation,
+                            skip_input, fast)
+    d_in, out_dim = _layout(x, weights, n_blocks, readout, skip_input)
+    _check(all(w.dtype == torch.bfloat16 for w in weights),
+           "weights must be bf16")
+    if pack is None:
+        pack = pack_chain(weights, n_blocks, readout, skip_input, x.device)
+    return _launch(x, pack, d_in, n_blocks, out_dim, activation, skip_input,
+                   fast)
+
+
 class _ResMLPDiff(torch.autograd.Function):
     """K1': kernel forward (f32 stream), plain recompute backward."""
 
@@ -242,10 +261,12 @@ class _ResMLPDiff(torch.autograd.Function):
         if x.device.type == "cpu":
             return resmlp_plain(x, weights, n_blocks, readout, activation,
                                 skip_input)
-        # the kernel reads bf16 copies of the weights (from `pack`)
-        out = resmlp_rows(x, [w.to(torch.bfloat16) for w in weights],
-                          n_blocks, readout, activation, skip_input,
-                          pack=pack)
+        d_in, out_dim = _layout(x, weights, n_blocks, readout, skip_input)
+        if pack is None:                # the pack holds bf16 copies
+            pack = pack_chain(weights, n_blocks, readout, skip_input,
+                              x.device)
+        out = _launch(x, pack, d_in, n_blocks, out_dim, activation,
+                      skip_input, False)
         RESMLP.counts["resmlp_rows_diff"] += 1
         return out
 

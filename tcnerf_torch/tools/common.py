@@ -101,6 +101,38 @@ def time_ms(fn: Callable, device: torch.device, iters: int,
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn: Callable, device: torch.device, calls: int = 20,
+             replays: int = 5) -> float:
+    """ms per call on the card alone: `calls` back-to-back calls captured in
+    one CUDA graph, replayed `replays` times between CUDA events. For a
+    kernel shorter than its wrapper's host work (checks, allocation, the
+    launch itself), `time_ms` reads the host's launch rate instead. On the
+    CPU, `time_ms`."""
+    if device.type != "cuda":
+        return time_ms(fn, device, calls)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):       # warm up off the default stream
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize(device)
+    ms = start.elapsed_time(end) / (calls * replays)
+    del graph
+    return ms
+
+
 def random_chain(gen: torch.Generator, n_blocks: int, d_in: Optional[int],
                  out_dim: int, device) -> list:
     """Flat chain weights ([in, out] layout) in bf16, glorot-like scale: an
