@@ -186,10 +186,12 @@ def phase_gather(dev, card, launches):
     every probe's kernel against its plain version, bit for bit (tolerance
     0: a gather moves bits, and the one-hot product is exact); each kernel
     is then timed beside its plain version and the one PyTorch call that
-    computes the same function."""
+    computes the same function: kernel and library as a CUDA graph of
+    launches (`graph_ms`; a ~0.1 ms kernel is close to its wrapper's host
+    work), the plain version with CUDA events."""
     from tcnerf_torch.ops.gather import GATHER
     from tcnerf_torch.tools import bench_gather2, bench_gather3, bench_gather4
-    from tcnerf_torch.tools.common import bound_ms, time_ms
+    from tcnerf_torch.tools.common import bound_ms, graph_ms, time_ms
 
     results = {}
     for tool in (bench_gather2, bench_gather3, bench_gather4):
@@ -213,14 +215,22 @@ def phase_gather(dev, card, launches):
                      source=f"tcnerf_torch/csrc/{GATHER.source}",
                      replaces=tool.TPU_KERNELS[case.k],
                      mode=f"{name} {case.probe}: {case.mode}",
-                     ms=time_ms(case.call, dev, 10),
+                     ms=graph_ms(case.call, dev),
                      plain_ms=time_ms(case.plain, dev, 3),
-                     library_ms=time_ms(case.library, dev, 10),
+                     library_ms=graph_ms(case.library, dev),
                      bound=bound_ms(case.flops, case.nbytes))
+            note = ""
+            if case.product:
+                dense, done = case.product
+                r["executed_flops"] = done
+                note = (f"; one-hot product dense {dense:.4g} ops "
+                        f"({bound_ms(dense, 0.)[0]:.4f} ms at the bf16 "
+                        f"peak), executed {done:.4g} "
+                        f"({bound_ms(done, 0.)[0]:.4f} ms)")
             print(f"time {tag}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
                   f"ms, library {r['library_ms']:.4f} ms, bound "
-                  f"{r['bound'][0]:.4f} ms by {r['bound'][1]}, bytes alone "
-                  f"{bound_ms(0., case.nbytes)[0]:.4f} ms) [{card}]")
+                  f"{r['bound'][0]:.4f} ms by {r['bound'][1]}{note}) "
+                  f"[{card}]")
             results.setdefault(case.k, r)       # K7's row: P1, f32
         del inp
     launches.update({k: r["launches"] for k, r in results.items()})
@@ -879,7 +889,8 @@ def main(argv) -> int:
                      # no single PyTorch call computes K1-K3's fused chain
                      "library_ms": r.get("library_ms"),
                      **{key: r[key] for key in ("coarse_ms", "backward_ms",
-                                                "coarse_backward_ms")
+                                                "coarse_backward_ms",
+                                                "executed_flops")
                         if key in r}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

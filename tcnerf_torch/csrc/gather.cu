@@ -3,8 +3,8 @@
 // the Hopper analogue of the probe's mechanism, since the mechanism is what
 // the probe measures:
 //
-//   G1 gather_rows         out[q] = table[idx[q]], straight from global memory
-//                          (K4 pallas_dma_gather, bench_gather2.py:66).
+//   G1 gather_rows         out[q] = table[idx[q]], straight from global
+//                          memory (K4 pallas_dma_gather, bench_gather2.py:66).
 //   G2 gather_rows_window  out[q] = win[idx[q]], the window staged in shared
 //                          memory (K5 pallas_vmem_loop bench_gather2.py:99,
 //                          K6 pallas_vmem_take :122, K7 pallas_row_loop
@@ -19,10 +19,13 @@
 //                          bench_gather3.py:161, K13 pallas_onehot
 //                          bench_gather4.py:168).
 //
-// What bounds them on the H100: G1-G3 move bytes and do no arithmetic, so
-// device memory bounds them (each output row written once, each input read
-// once). G4 does 2 * N * WIN * 128 operations on purpose to move the same
-// bytes as G2; at WIN 512 and 2048 the bf16 tensor-core rate bounds it.
+// What bounds them on the H100: each moves bytes (each output row written
+// once, each input read once), so device memory bounds all four. G4's
+// product does arithmetic on purpose, but only the k16 blocks of the window
+// that a 16-row tile indexes carry a non-zero one-hot A, so the product it
+// executes depends on the indices (about 12% of the dense product at K13's
+// 2048-row window, 39% at K9's 512); G1's table is six times the L2, so its
+// bound is met only if each touched row comes from device memory once.
 //
 // G1 and G2 copy opaque 16-byte vectors, so they take f32 and bf16 rows
 // alike. Row indices outside the table or window are outside the function;
@@ -35,6 +38,7 @@ using namespace tcn;
 namespace {
 
 constexpr int MAX_SMEM = 232448;           // a block's opt-in shared memory
+constexpr unsigned FULL = 0xffffffffu;     // every lane of a warp
 
 int sm_count() {
   int dev = 0, n = 0;
@@ -44,21 +48,107 @@ int sm_count() {
 }
 
 // ---------------------------------------------------------------- G1
-// Each warp copies whole rows with 16-byte vector loads and stores, lane i
-// taking vectors i, i + 32, ...; the warps stride over the queries.
-constexpr int ROWS_THREADS = 256;
+// The table (315 MB at K4) is six times the L2 and the indices are random,
+// so a direct gather misses L2 on every read: a row that several queries
+// touch comes from device memory each time (K4: 524,288 reads of ~251,600
+// rows), and the output's stores evict the table's lines. Here the table is
+// cut into bands of about a quarter of the L2 (ROWS_BAND_BYTES). Persistent
+// CTAs each take a contiguous slice of the queries, in chunks of ROWS_CHUNK:
+// the CTA counting-sorts the chunk's (query, row) pairs by band in shared
+// memory, then its warps copy the rows in band order, ROWS_UNROLL rows a
+// warp at a time, 16-byte vectors per lane. All CTAs start together and
+// hold about equal shares of each band, so at any time they read from about
+// one band, and a row's re-reads hit L2. The kernel writes the output with
+// streaming stores (st.global.cs, evict first), so that it does not push
+// the band out of L2, and reads the table with an L2 evict-last policy.
+// Device memory bounds it: each touched row read once, each output row
+// written once (K4: 258 + 537 MB).
+constexpr int ROWS_THREADS = 512, ROWS_WARPS = ROWS_THREADS / 32;
+constexpr int ROWS_PER_THREAD = 8;         // chunk entries a thread sorts
+constexpr int ROWS_CHUNK = ROWS_THREADS * ROWS_PER_THREAD;
+constexpr int ROWS_UNROLL = 4;             // rows a warp copies at a time
+constexpr int ROWS_MAX_BANDS = 1024;
+constexpr long ROWS_BAND_BYTES = 12L << 20;
 
-__global__ void __launch_bounds__(ROWS_THREADS)
+__device__ __forceinline__ void st_stream(uint4* p, uint4 v) {
+  asm volatile("st.global.cs.v4.b32 [%0], {%1,%2,%3,%4};\n" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_keep(const uint4* p, uint64_t policy) {
+  uint4 v;
+  asm volatile(
+      "ld.global.nc.L2::cache_hint.v4.u32 {%0,%1,%2,%3}, [%4], %5;\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+__global__ void __launch_bounds__(ROWS_THREADS, 2)
 gather_rows_kernel(const uint4* __restrict__ table, const int* __restrict__ idx,
-                   uint4* __restrict__ out, int n, int vecs, unsigned n_rows) {
-  const int lane = threadIdx.x & 31;
-  const int n_warps = gridDim.x * (ROWS_THREADS / 32);
-  for (int q = (blockIdx.x * ROWS_THREADS + threadIdx.x) >> 5; q < n;
-       q += n_warps) {
-    const unsigned r = min((unsigned)__ldg(idx + q), n_rows - 1);
-    const uint4* src = table + (size_t)r * vecs;
-    uint4* dst = out + (size_t)q * vecs;
-    for (int c = lane; c < vecs; c += 32) dst[c] = __ldg(src + c);
+                   uint4* __restrict__ out, int n, int vecs, unsigned n_rows,
+                   unsigned band_rows, int n_bands, int slice) {
+  __shared__ int start[ROWS_MAX_BANDS];    // counts, then write cursors
+  __shared__ int2 entry[ROWS_CHUNK];       // (query, row), in band order
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint64_t keep;                           // L2 evict-last for the table
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(keep));
+  const int q_end = min(n, ((int)blockIdx.x + 1) * slice);
+  for (int c0 = (int)blockIdx.x * slice; c0 < q_end; c0 += ROWS_CHUNK) {
+    const int len = min(ROWS_CHUNK, q_end - c0);
+    for (int b = threadIdx.x; b < n_bands; b += ROWS_THREADS) start[b] = 0;
+    __syncthreads();
+    unsigned row[ROWS_PER_THREAD];
+#pragma unroll
+    for (int k = 0; k < ROWS_PER_THREAD; ++k) {
+      const int e = threadIdx.x + k * ROWS_THREADS;
+      row[k] = e < len ? min((unsigned)__ldg(idx + c0 + e), n_rows - 1) : 0u;
+      if (e < len) atomicAdd(start + row[k] / band_rows, 1);
+    }
+    __syncthreads();
+    if (warp == 0) {                       // exclusive scan of the counts
+      int carry = 0;
+      for (int b0 = 0; b0 < n_bands; b0 += 32) {
+        const int v = b0 + lane < n_bands ? start[b0 + lane] : 0;
+        int incl = v;
+#pragma unroll
+        for (int d = 1; d < 32; d *= 2) {
+          const int u = __shfl_up_sync(FULL, incl, d);
+          if (lane >= d) incl += u;
+        }
+        if (b0 + lane < n_bands) start[b0 + lane] = carry + incl - v;
+        carry += __shfl_sync(FULL, incl, 31);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < ROWS_PER_THREAD; ++k) {
+      const int e = threadIdx.x + k * ROWS_THREADS;
+      if (e < len)
+        entry[atomicAdd(start + row[k] / band_rows, 1)] =
+            make_int2(c0 + e, (int)row[k]);
+    }
+    __syncthreads();
+    for (int e0 = warp * ROWS_UNROLL; e0 < len;
+         e0 += ROWS_WARPS * ROWS_UNROLL) {
+      int2 en[ROWS_UNROLL];
+#pragma unroll
+      for (int u = 0; u < ROWS_UNROLL; ++u)
+        en[u] = e0 + u < len ? entry[e0 + u] : make_int2(-1, 0);
+      for (int c = lane; c < vecs; c += 32) {
+        uint4 v[ROWS_UNROLL];
+#pragma unroll
+        for (int u = 0; u < ROWS_UNROLL; ++u)
+          if (en[u].x >= 0)
+            v[u] = ld_keep(table + (size_t)en[u].y * vecs + c, keep);
+#pragma unroll
+        for (int u = 0; u < ROWS_UNROLL; ++u)
+          if (en[u].x >= 0) st_stream(out + (size_t)en[u].x * vecs + c, v[u]);
+      }
+    }
+    __syncthreads();                       // entry and start are reused
   }
 }
 
@@ -119,7 +209,6 @@ gather_window_kernel(const unsigned char* __restrict__ win,
 // __shfl_sync; each shuffle sends one of the sender's registers, so the
 // receiver fetches every register that can hold slot idx[l] % 4 and selects.
 constexpr int LANES_THREADS = 256;
-constexpr unsigned FULL = 0xffffffffu;
 
 __global__ void __launch_bounds__(LANES_THREADS)
 gather_lanes_f32_kernel(const float4* __restrict__ src,
@@ -168,33 +257,34 @@ gather_lanes_bf16_kernel(const uint2* __restrict__ src,
 }
 
 // ---------------------------------------------------------------- G4
-// out[N, 128] = onehot(idx)[N, WIN] @ win[WIN, 128] with mma.sync m16n8k16,
-// bf16 operands, f32 accumulation. The one-hot A fragment is built in
-// registers from the row's index (no memory read). B, the window, streams
-// through shared memory in k-slices of 64 rows over a 4-deep cp.async ring
-// (a [2048, 128] window is 512 KB and does not fit), rows padded to 136
-// elements so that ldmatrix.trans (B is row-major [k][n]; the mma wants it
-// "col") reads 8 rows on distinct banks. Each warp owns 32 rows (two
-// m-tiles) and all 128 columns, so each B fragment feeds two mma.sync.
-// Every output element is 1.0 * x plus zeros in f32: exact.
-constexpr int OH_WARPS = 8, OH_THREADS = OH_WARPS * 32, OH_MT = 2;
-constexpr int OH_ROWS = OH_WARPS * OH_MT * 16;      // 256 rows per CTA
-constexpr int KS = 64;                              // window rows per slice
-constexpr int STAGES = 4;
-constexpr int LDB = HID + 8;
-constexpr int SLICE = KS * LDB;                     // elements
-constexpr int OH_SMEM = STAGES * SLICE * 2;         // 69,632 bytes
+// out[N, 128] = onehot(idx)[N, W] @ win[W, 128] with mma.sync m16n8k16,
+// bf16 operands, f32 accumulation. Every output element is 1.0 * x plus
+// zeros in f32: exact. The dense product is 2 * N * W * 128 operations (at
+// K13 0.42 ms at the bf16 peak, about the library gather's whole time), but
+// a k16 block of the window that none of a tile's 16 rows index has an
+// all-zero A and adds nothing. So each warp takes 16 rows at a time, finds
+// the distinct blocks idx >> 4 of its rows (a __reduce_min_sync loop), and
+// multiplies only those: about 15 of K13's 128 blocks, 12 of K9's 32.
+//
+// The window stays resident in shared memory: cut into column slabs of SW
+// columns (the widest that fits: [512 x 128] whole, [2048 x 32] at K13),
+// rows padded by 8 elements so that ldmatrix.trans (B is row-major [k][n];
+// the mma wants it "col") reads 8 rows on distinct banks. The CTAs are
+// persistent, about one per SM, divided among the slabs; each stages its
+// slab once, then its warps walk the 16-row tiles and write the slab's
+// columns of each output row, through a per-warp staging tile in shared
+// memory so that each store is 16 bytes (4-byte stores from the mma
+// fragments touch each 32-byte sector twice). The one-hot A fragment is
+// built in registers from the rows' indices, which lanes l and l + 16 load
+// for row l & 15, one tile ahead; per block only a select remains.
+constexpr int OH_PAD = 8;                           // elements per slab row
 
-__device__ __forceinline__ void fetch_slice(bf16* dst, const bf16* win, int s,
-                                            int n_slices, int win_rows) {
-  if (s < n_slices) {
-    const int r0 = s * KS, rows = min(KS, win_rows - r0);
-    for (int i = threadIdx.x; i < rows * (HID / 8); i += OH_THREADS) {
-      const int r = i / (HID / 8), c = (i % (HID / 8)) * 8;
-      cp_async16(dst + r * LDB + c, win + (size_t)(r0 + r) * HID + c);
-    }
-  }
-  cp_async_commit();             // an empty group past the end keeps counts
+__host__ __device__ constexpr int oh_warps(int sw) {
+  return sw >= 64 ? 16 : 32;
+}
+// shared memory: the slab, then a 16-row staging tile per warp
+__host__ __device__ constexpr long oh_smem(int sw, int win_rows) {
+  return (long)(win_rows + oh_warps(sw) * 16) * (sw + OH_PAD) * 2;
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
@@ -210,82 +300,109 @@ __device__ __forceinline__ uint32_t onehot_pair(int d) {
   return (d == 0 ? 0x3F80u : 0u) | (d == 1 ? 0x3F800000u : 0u);
 }
 
-__global__ void __launch_bounds__(OH_THREADS)
+__device__ __forceinline__ int tile_index(const int* idx, int tile, int n,
+                                          int lane) {
+  const int r = tile * 16 + (lane & 15);
+  return r < n ? __ldg(idx + r) : -1;               // -1 matches no column
+}
+
+template <int SW>
+__global__ void __launch_bounds__(oh_warps(SW) * 32, 1)
 gather_onehot_kernel(const bf16* __restrict__ win, const int* __restrict__ idx,
-                     bf16* __restrict__ out, int n, int win_rows) {
+                     bf16* __restrict__ out, int n, int win_rows,
+                     int ctas_per_slab) {
+  constexpr int WARPS = oh_warps(SW), LDS = SW + OH_PAD, NP = SW / 16;
+  constexpr int VR = SW / 8;                        // 16-byte vectors a row
+  constexpr int NO_BLOCK = 0x7fffffff;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* slab = reinterpret_cast<bf16*>(smem);
+  const int col0 = blockIdx.x / ctas_per_slab * SW;
+  const int part = blockIdx.x % ctas_per_slab;
+  for (int i = threadIdx.x; i < win_rows * VR; i += WARPS * 32) {
+    const int r = i / VR, c = i % VR * 8;
+    cp_async16(slab + r * LDS + c, win + (size_t)r * HID + col0 + c);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * OH_ROWS + warp * OH_MT * 16;
-  int id[OH_MT][2];                                 // rows g and g + 8
-#pragma unroll
-  for (int mt = 0; mt < OH_MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row0 + mt * 16 + 8 * h + g;
-      id[mt][h] = r < n ? __ldg(idx + r) : -1;     // -1 matches no column
-    }
-  float acc[OH_MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < OH_MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
+  bf16* stage = slab + (win_rows + warp * 16) * LDS;
   // ldmatrix x4: lanes 8m..8m+7 address the rows of matrix m = (k half,
   // n half) of a 16 x 16 block: regs 0, 1 = b0, b1 of n-tile 2p; 2, 3 of 2p+1
   const int m = lane >> 3;
-  const int lrow = (m & 1) * 8 + (lane & 7), lcol = (m >> 1) * 8;
-  const int n_slices = (win_rows + KS - 1) / KS;
-  for (int s = 0; s < STAGES - 1; ++s)
-    fetch_slice(ring + s * SLICE, win, s, n_slices, win_rows);
-  for (int s = 0; s < n_slices; ++s) {
-    cp_async_wait<STAGES - 2>();   // slice s landed (this thread's copies)
-    __syncthreads();               // ... everyone's, and slice s-1 is done
-    fetch_slice(ring + ((s + STAGES - 1) % STAGES) * SLICE, win,
-                s + STAGES - 1, n_slices, win_rows);
-    const bf16* b = ring + (s % STAGES) * SLICE;
-    const int kts = min(KS, win_rows - s * KS) / 16;
-    for (int kt = 0; kt < kts; ++kt) {
-      const int k0 = s * KS + kt * 16 + 2 * t;
-      uint32_t a[OH_MT][4];
+  const bf16* bl = slab + ((m & 1) * 8 + (lane & 7)) * LDS + (m >> 1) * 8;
+  const int n_tiles = (n + 15) / 16, step = ctas_per_slab * WARPS;
+  int tile = part * WARPS + warp;
+  int next = tile < n_tiles ? tile_index(idx, tile, n, lane) : -1;
+  for (; tile < n_tiles; tile += step) {
+    const int mine = next;
+    if (tile + step < n_tiles) next = tile_index(idx, tile + step, n, lane);
+    const int id0 = __shfl_sync(FULL, mine, g);     // rows g and g + 8
+    const int id1 = __shfl_sync(FULL, mine, g + 8);
+    float acc[2 * NP][4];
 #pragma unroll
-      for (int mt = 0; mt < OH_MT; ++mt) {
-        a[mt][0] = onehot_pair(id[mt][0] - k0);
-        a[mt][1] = onehot_pair(id[mt][1] - k0);
-        a[mt][2] = onehot_pair(id[mt][0] - k0 - 8);
-        a[mt][3] = onehot_pair(id[mt][1] - k0 - 8);
-      }
-      const bf16* bk = b + (kt * 16 + lrow) * LDB + lcol;
+    for (int j = 0; j < 2 * NP; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    // A fragment of each of the lane's two rows if the block is the row's
+    // (-1 and W >> 4 match no block of the window): built once per tile
+    const int b0 = id0 >> 4, b1 = id1 >> 4;
+    const int o0 = (id0 & 15) - 2 * t, o1 = (id1 & 15) - 2 * t;
+    const uint32_t f0 = onehot_pair(o0), f1 = onehot_pair(o1),
+                   f2 = onehot_pair(o0 - 8), f3 = onehot_pair(o1 - 8);
+    int blk = (unsigned)mine < (unsigned)win_rows ? mine >> 4 : NO_BLOCK;
+    int kb = __reduce_min_sync(FULL, blk);          // each hit block once
+    while (kb != NO_BLOCK) {
+      if (blk == kb) blk = NO_BLOCK;
+      const int next_kb = __reduce_min_sync(FULL, blk);   // ahead of the mma
+      const bool h0 = b0 == kb, h1 = b1 == kb;
+      const uint32_t a[4] = {h0 ? f0 : 0u, h1 ? f1 : 0u, h0 ? f2 : 0u,
+                             h1 ? f3 : 0u};
+      const bf16* bk = bl + kb * 16 * LDS;
 #pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
+      for (int p = 0; p < NP; ++p) {
         uint32_t f[4];
         ldsm_x4_trans(f, bk + p * 16);
-#pragma unroll
-        for (int mt = 0; mt < OH_MT; ++mt) {
-          mma_bf16(acc[mt][2 * p], a[mt], f[0], f[1]);
-          mma_bf16(acc[mt][2 * p + 1], a[mt], f[2], f[3]);
-        }
+        mma_bf16(acc[2 * p], a, f[0], f[1]);
+        mma_bf16(acc[2 * p + 1], a, f[2], f[3]);
       }
+      kb = next_kb;
     }
+    // out through the warp's staging tile: 16-byte stores of whole sectors
+#pragma unroll
+    for (int j = 0; j < 2 * NP; ++j) {
+      *reinterpret_cast<uint32_t*>(stage + g * LDS + j * 8 + 2 * t) =
+          pack_bf16(acc[j][0], acc[j][1]);
+      *reinterpret_cast<uint32_t*>(stage + (g + 8) * LDS + j * 8 + 2 * t) =
+          pack_bf16(acc[j][2], acc[j][3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = lane; i < 16 * VR; i += 32) {
+      const int r = i / VR, c = i % VR * 8, q = tile * 16 + r;
+      if (q < n)
+        *reinterpret_cast<uint4*>(out + (size_t)q * HID + col0 + c) =
+            *reinterpret_cast<const uint4*>(stage + r * LDS + c);
+    }
+    __syncwarp();                                   // stage is reused
   }
-  cp_async_wait<0>();
+}
 
-#pragma unroll
-  for (int mt = 0; mt < OH_MT; ++mt) {
-    const int r0 = row0 + mt * 16 + g, r1 = r0 + 8;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = nt * 8 + 2 * t;
-      if (r0 < n)
-        *reinterpret_cast<uint32_t*>(out + (size_t)r0 * HID + c) =
-            pack_bf16(acc[mt][nt][0], acc[mt][nt][1]);
-      if (r1 < n)
-        *reinterpret_cast<uint32_t*>(out + (size_t)r1 * HID + c) =
-            pack_bf16(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  }
+template <int SW>
+int launch_onehot(const void* win, const int* idx, void* out, int n,
+                  int win_rows, cudaStream_t stream) {
+  constexpr int WARPS = oh_warps(SW);
+  const int smem = (int)oh_smem(SW, win_rows);
+  const int err = enable_smem((const void*)gather_onehot_kernel<SW>, smem);
+  if (err) return err;
+  const int n_slabs = HID / SW, tiles = (n + 15) / 16;
+  const int ctas_per_slab = max(1, min(sm_count() / n_slabs,
+                                       (tiles + WARPS - 1) / WARPS));
+  gather_onehot_kernel<SW><<<n_slabs * ctas_per_slab, WARPS * 32, smem,
+                             stream>>>((const bf16*)win, idx, (bf16*)out, n,
+                                       win_rows, ctas_per_slab);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -295,15 +412,21 @@ gather_onehot_kernel(const bf16* __restrict__ win, const int* __restrict__ idx,
 // shape it does not take).
 
 // table [n_rows][row_bytes], out [n][row_bytes]; row_bytes a multiple of 16.
+// The bands follow from the table's bytes: ROWS_BAND_BYTES each, or more
+// where the table would need more than ROWS_MAX_BANDS of them.
 extern "C" int gather_rows_launch(const void* table, const int* idx, void* out,
                                   int n, int n_rows, int row_bytes,
                                   void* stream) {
   if (row_bytes % 16 || n_rows < 1) return (int)cudaErrorInvalidValue;
-  const int blocks_needed = (n + ROWS_THREADS / 32 - 1) / (ROWS_THREADS / 32);
-  const int grid = min(blocks_needed, sm_count() * (2048 / ROWS_THREADS));
+  const long fit = ROWS_BAND_BYTES / row_bytes;
+  const long spread = ((long)n_rows + ROWS_MAX_BANDS - 1) / ROWS_MAX_BANDS;
+  const long band_rows = fit > spread ? (fit > 1 ? fit : 1) : spread;
+  const int n_bands = (int)((n_rows + band_rows - 1) / band_rows);
+  const int grid = max(1, min(2 * sm_count(), (n + 255) / 256));
+  const int slice = (n + grid - 1) / grid;
   gather_rows_kernel<<<grid, ROWS_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint4*)table, idx, (uint4*)out, n, row_bytes / 16,
-      (unsigned)n_rows);
+      (unsigned)n_rows, (unsigned)band_rows, n_bands, slice);
   return (int)cudaGetLastError();
 }
 
@@ -345,15 +468,17 @@ extern "C" int gather_lanes_launch(const void* src, const int* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-// win [win_rows][128] bf16 with win_rows a multiple of 16; idx [n];
-// out [n][128] bf16.
+// win [win_rows][128] bf16 with win_rows a multiple of 16 whose narrowest
+// slab fits in shared memory with its staging tiles (oh_smem(16, win_rows)
+// <= 232,448: at most 4,320 rows); idx [n]; out [n][128] bf16.
 extern "C" int gather_onehot_launch(const void* win, const int* idx, void* out,
                                     int n, int win_rows, void* stream) {
-  if (win_rows < 16 || win_rows % 16) return (int)cudaErrorInvalidValue;
-  int err = enable_smem((const void*)gather_onehot_kernel, OH_SMEM);
-  if (err) return err;
-  const int grid = (n + OH_ROWS - 1) / OH_ROWS;
-  gather_onehot_kernel<<<grid, OH_THREADS, OH_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)win, idx, (bf16*)out, n, win_rows);
-  return (int)cudaGetLastError();
+  auto fits = [&](int sw) { return oh_smem(sw, win_rows) <= MAX_SMEM; };
+  if (win_rows < 16 || win_rows % 16 || !fits(16))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (fits(128)) return launch_onehot<128>(win, idx, out, n, win_rows, st);
+  if (fits(64)) return launch_onehot<64>(win, idx, out, n, win_rows, st);
+  if (fits(32)) return launch_onehot<32>(win, idx, out, n, win_rows, st);
+  return launch_onehot<16>(win, idx, out, n, win_rows, st);
 }

@@ -34,7 +34,7 @@ from ..ops.gather import (gather_lanes, gather_lanes_plain, gather_onehot,
                           gather_onehot_plain, gather_rows_plain,
                           gather_rows_window)
 from .common import (KernelCase, base_parser, check_case, device_line,
-                     dtype_name, nbytes, probe, to_torch)
+                     dtype_name, nbytes, onehot_product, probe, to_torch)
 
 N = 786_432          # queries per render chunk (4096 rays x 192 samples)
 HW = 480 * 640
@@ -97,9 +97,9 @@ def cases(inp: Dict) -> List[KernelCase]:
                    f"[{OH_WIN}x{LANES}] bf16 window, N {n}",
                    lambda: gather_onehot(win_oh, idx_oh),
                    lambda: gather_onehot_plain(win_oh, idx_oh),
-                   lambda: win_oh.index_select(0, io64),
-                   2. * n * OH_WIN * LANES,
-                   nbytes(win_oh, idx_oh) + n * LANES * 2),
+                   lambda: win_oh.index_select(0, io64), 0.,
+                   nbytes(win_oh, idx_oh) + n * LANES * 2,
+                   product=onehot_product(win_oh, idx_oh)),
     ]
 
 
@@ -134,7 +134,8 @@ def run(inp: Dict, device: torch.device, iters: int = 5) -> Dict:
     for case in cases(inp):
         err = check_case(case)
         res[case.probe] = probe(names[case.probe], case.call, n, device,
-                                iters, case.kernel, case.flops, case.nbytes)
+                                iters, case.kernel, case.flops, case.nbytes,
+                                product=case.product)
         res[case.probe]["max_abs_err"] = err
     return res
 

@@ -32,7 +32,7 @@ from ..ops.gather import (gather_lanes, gather_lanes_plain, gather_onehot,
                           gather_onehot_plain, gather_rows_plain,
                           gather_rows_window)
 from .common import (KernelCase, base_parser, check_case, device_line,
-                     dtype_name, nbytes, probe, to_torch)
+                     dtype_name, nbytes, onehot_product, probe, to_torch)
 
 N = 786_432
 HW = 480 * 640
@@ -143,8 +143,9 @@ def cases(inp: Dict) -> List[KernelCase]:
                    f"[{WIN}x{LANES}] bf16 window, N {n}",
                    lambda: gather_onehot(win, idx_w),
                    lambda: gather_onehot_plain(win, idx_w),
-                   lambda: win.index_select(0, iw64), 2. * n * WIN * LANES,
-                   nbytes(win, idx_w) + out_w),
+                   lambda: win.index_select(0, iw64), 0.,
+                   nbytes(win, idx_w) + out_w,
+                   product=onehot_product(win, idx_w)),
     ]
 
 
@@ -159,7 +160,8 @@ def run(inp: Dict, device: torch.device, k: int = K, outer: int = 3) -> Dict:
         if case is None:
             return probe(name, fn, n, device, outer, per_call=k)
         return dict(probe(name, fn, n, device, outer, case.kernel, case.flops,
-                          case.nbytes, per_call=k), max_abs_err=errs[case.probe])
+                          case.nbytes, per_call=k, product=case.product),
+                    max_abs_err=errs[case.probe])
 
     kc = {case.probe: case for case in cases(inp)}
     errs = {p: check_case(case) for p, case in kc.items()}

@@ -7,12 +7,12 @@ import argparse
 import subprocess
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.gather import GATHER
+from ..ops.gather import GATHER, ONEHOT_TILE, onehot_tile_blocks
 
 # published peaks of one H100 SXM (dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -23,7 +23,9 @@ PEAK_BYTES = 3.35e12
 class KernelCase:
     """One TPU kernel's probe at the probe's shapes: the port's kernel call,
     its plain version, the one PyTorch call that computes the same function,
-    and the work the bound counts."""
+    and the work the bound counts. A one-hot product also names its dense
+    operations and those the kernel executes on these indices, which the
+    bound does not count: the function is a gather."""
     k: str                     # TPU kernel number in PERF.md's table
     probe: str                 # probe letter in the tool's output
     kernel: str                # GATHER.counts key of the kernel
@@ -33,6 +35,18 @@ class KernelCase:
     library: Callable
     flops: float
     nbytes: float
+    product: Optional[Tuple[float, float]] = None   # (dense, executed)
+
+
+def onehot_product(win: torch.Tensor, idx: torch.Tensor
+                   ) -> Tuple[float, float]:
+    """(dense, executed) operations of onehot(idx) @ win: the dense product
+    over the whole window, and the one-hot kernel's, over the k16 blocks
+    each of its tiles hits."""
+    cols = win.shape[1]
+    dense = 2. * idx.numel() * win.shape[0] * cols
+    blocks = onehot_tile_blocks(idx, win.shape[0])
+    return dense, 2. * blocks * ONEHOT_TILE * 16 * cols
 
 
 def dtype_name(t: torch.Tensor) -> str:
@@ -172,10 +186,12 @@ def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 def probe(name: str, fn: Callable, n: int, device: torch.device, iters: int,
           kernel: Optional[str] = None, flops: float = 0.,
-          nbytes: float = 0., per_call: int = 1) -> Dict:
+          nbytes: float = 0., per_call: int = 1,
+          product: Optional[Tuple[float, float]] = None) -> Dict:
     """Time one probe and print its line: ms per op, ns per row and, for a
     kernel probe, the bound and the launches of `kernel` during the probe.
-    `per_call` ops run inside one call of fn."""
+    `per_call` ops run inside one call of fn. `product` = (dense, executed)
+    operations of a one-hot product, printed beside the bound."""
     before = GATHER.counts[kernel] if kernel else 0
     ms = time_ms(fn, device, iters) / per_call
     res = dict(ms=ms, ns_per_row=ms * 1e6 / n)
@@ -189,5 +205,9 @@ def probe(name: str, fn: Callable, n: int, device: torch.device, iters: int,
             line += f" (bytes alone {res['bytes_ms']:.4f} ms)"
         if device.type == "cuda":
             line += f" ({ms / b:.2f}x)"
+        if product:
+            res.update(dense_flops=product[0], executed_flops=product[1])
+            line += (f"; product dense {product[0]:.4g} ops, executed "
+                     f"{product[1]:.4g}")
     print(f"{line} [{device.type}]", flush=True)
     return res

@@ -20,6 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from tcnerf_torch.ops import gather as G
 from tcnerf_torch.tools import bench_gather2, bench_gather3, bench_gather4
+from tcnerf_torch.tools.common import bound_ms
 
 ROOT = Path(__file__).resolve().parent.parent
 N = 1024             # two of the probes' 512-query tiles
@@ -203,3 +204,49 @@ def test_tpu_kernel_references_name_the_pallas_function(k):
             break
         body.append(text)
     assert any("pl.pallas_call(" in t for t in body), head
+
+
+def _tile_blocks_brute(idx, win_rows, tile):
+    """(tile, k16 block) pairs hit, counted row by row."""
+    hit = set()
+    for q, i in enumerate(idx):
+        if 0 <= i < win_rows:
+            hit.add((q // tile, i // 16))
+    return len(hit)
+
+
+@pytest.mark.parametrize("n,win_rows,tile", [(1, 16, 16), (1000, 48, 16),
+                                             (4096, 512, 16), (777, 2048, 16),
+                                             (300, 64, 64)])
+def test_onehot_tile_blocks_matches_brute_force(n, win_rows, tile):
+    """The executed-product count of the one-hot kernel: the (tile, block)
+    pairs idx hits, indices outside the window (-1, W, -17) hitting none."""
+    rng = np.random.default_rng(n + win_rows)
+    idx = rng.integers(-3, win_rows + 3, size=n).astype(np.int32)
+    idx[:3] = (-1, win_rows, -17)[:n]
+    got = G.onehot_tile_blocks(torch.from_numpy(idx[:, None]), win_rows,
+                               tile)
+    assert got == _tile_blocks_brute(idx.tolist(), win_rows, tile)
+
+
+@pytest.mark.parametrize("name", ["bench_gather3", "bench_gather4"])
+def test_onehot_cases_bound_by_bytes(name):
+    """K9/K13 are gathers: their bound counts bytes alone. Beside it the
+    case names the dense product and the one the kernel executes on these
+    indices, (tile, block) pairs x 2 * 16 * 16 * 128."""
+    tool, k = {"bench_gather3": (bench_gather3, "K9"),
+               "bench_gather4": (bench_gather4, "K13")}[name]
+    inp = tool.make_inputs(torch.device("cpu"), n=1024, hw=4096)
+    case = next(c for c in tool.cases(inp) if c.k == k)
+    win = inp["win_bf"][:bench_gather3.OH_WIN] if k == "K9" else inp["win"]
+    idx = (inp["idx_oh"] if k == "K9"
+           else inp["idx"] % bench_gather4.WIN).reshape(-1)
+    b_ms, by = bound_ms(case.flops, case.nbytes)
+    assert case.flops == 0 and by == "bytes" and b_ms > 0
+    assert case.nbytes == (win.numel() * 2 + idx.numel() * 4
+                           + idx.numel() * 128 * 2)
+    dense, executed = case.product
+    assert dense == 2. * 1024 * win.shape[0] * 128
+    blocks = _tile_blocks_brute(idx.tolist(), win.shape[0], 16)
+    assert executed == blocks * 2. * 16 * 16 * 128
+    assert 0 < executed < dense

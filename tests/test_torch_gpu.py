@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from tcnerf_torch.ops.gather import (GATHER, gather_lanes, gather_lanes_plain,
-                                     gather_onehot, gather_onehot_plain,
-                                     gather_rows, gather_rows_plain,
-                                     gather_rows_window)
+from tcnerf_torch.ops.gather import (GATHER, ONEHOT_MAX_WIN, gather_lanes,
+                                     gather_lanes_plain, gather_onehot,
+                                     gather_onehot_plain, gather_rows,
+                                     gather_rows_plain, gather_rows_window)
 from tcnerf_torch.models import training
 from tcnerf_torch.models.renderer import MVNeRFRenderer
 from tcnerf_torch.nn.mlp import MVResNetMLPEmbedding
@@ -252,21 +252,61 @@ def test_gather_lanes_kernel_matches_plain(cuda, dtype):
     assert torch.equal(got, gather_lanes_plain(src, idx))
 
 
+# (rows, cols): a table of 40,000 1 KB rows is four of G1's 12 MB bands
+BAND_TABLES = {torch.bfloat16: (40000, 512), torch.float32: (40000, 256)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [512, 2048, 48])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lo,n", [(0, 99999), (36864, 1000), (0, 1)],
+                         ids=["ragged", "last-band", "n1"])
+def test_gather_rows_walks_bands(cuda, dtype, lo, n):
+    """G1 on a table of several bands against index_select, bit for bit:
+    indices over the whole table with a ragged n (not a multiple of the
+    chunk or of a CTA's slice), all in the last band, and one query."""
+    rng = np.random.default_rng(10)
+    rows, cols = BAND_TABLES[dtype]
+    table = _tt(rng.normal(size=(rows, cols)), dtype).to(cuda)
+    idx = rng.integers(lo, rows, size=n).astype(np.int32)
+    idx[-1] = rows - 1
+    idx = torch.as_tensor(idx).to(cuda)
+    got = _launch("gather_rows", gather_rows, table, idx)
+    assert torch.equal(got, table.index_select(0, idx.long()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [16, 48, 512, 2048, ONEHOT_MAX_WIN])
+@pytest.mark.parametrize("n", [1000, 1])
 @pytest.mark.parametrize("column", [False, True])
-def test_gather_onehot_kernel_matches_plain(cuda, rows, column):
+def test_gather_onehot_kernel_matches_plain(cuda, rows, n, column):
     """G4 against its plain version and index_select, bit for bit: each
-    output element is one product 1.0 * x plus zeros in f32. 48 rows end in
-    a partial k-slice."""
+    output element is one product 1.0 * x plus zeros in f32. Windows of one
+    block, three blocks, K9's, K13's (four column slabs) and the largest
+    (16-column slabs); indices at random, all in one k16 block, every block
+    hit; -1 and W give zero rows."""
     rng = np.random.default_rng(9)
     win = _tt(rng.normal(size=(rows, HID)), torch.bfloat16).to(cuda)
-    idx = torch.as_tensor(_edge_idx(rng, 1000, rows)).to(cuda)
-    if column:
-        idx = idx[:, None].contiguous()
-    got = _launch("gather_onehot", gather_onehot, win, idx)
-    assert torch.equal(got, gather_onehot_plain(win, idx))
-    assert torch.equal(got, win.index_select(0, idx.reshape(-1).long()))
+    one_block = rng.integers(rows - 16, rows, size=n).astype(np.int32)
+    every = (np.arange(n) * 7 % rows).astype(np.int32)
+    for idx in (_edge_idx(rng, n, rows) if n > 1 else
+                rng.integers(0, rows, size=1).astype(np.int32),
+                one_block, every):
+        idx = torch.as_tensor(idx).to(cuda)
+        if column:
+            idx = idx[:, None].contiguous()
+        got = _launch("gather_onehot", gather_onehot, win, idx)
+        assert torch.equal(got, gather_onehot_plain(win, idx))
+        assert torch.equal(got, win.index_select(0, idx.reshape(-1).long()))
+    if n > 1:
+        idx = torch.as_tensor(_edge_idx(rng, n, rows)).to(cuda)
+        idx[3:5] = torch.tensor([-1, rows], dtype=torch.int32)
+        got = _launch("gather_onehot", gather_onehot, win, idx)
+        assert torch.equal(got, gather_onehot_plain(win, idx))
+        assert not got[3:5].any()
+        keep = torch.ones(n, dtype=torch.bool, device=cuda)
+        keep[3:5] = False
+        assert torch.equal(got[keep],
+                           win.index_select(0, idx[keep].long()))
 
 
 @pytest.mark.gpu
@@ -290,6 +330,8 @@ def test_gather_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
          torch.zeros((64, HID), dtype=torch.int32)),
         (gather_onehot, torch.zeros((512, HID), device=cuda), idx),
         (gather_onehot, torch.zeros((40, HID), dtype=bf, device=cuda), idx),
+        (gather_onehot, torch.zeros((ONEHOT_MAX_WIN + 16, HID), dtype=bf,
+                                    device=cuda), idx),
     ]
     for fn, data, ix in bad:
         with pytest.raises(ValueError):
