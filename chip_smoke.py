@@ -12,7 +12,11 @@ versions bit for bit, serves a
 full 480x640 view of the full-width `nerf_1_view_wo` model (seeded random
 weights) through `render_view` on the fused swg path, the flax
 (`pallas_mlp`) path and the f32 swg path, checks that each path launched its
-kernel and that the output is finite, and prints the times. Last it trains
+kernel and that the output is finite, and prints the times. Then it serves
+the CLIP-fused models at full width: `nerf_1_view` (fusion v0) on the swg
+path (K2) with a profiled view split by the port's profiler ranges, a
+v4-elu model gated by the CLIP text tower's embedding of a prompt, and
+the bf16 `nerf_3_view` model on the flax path (K1). Last it trains
 the same model (f32, K1' in the chain halves) for 4 steps through
 `tcnerf_torch.train.train_nerf` on a synthetic dataset, holds K1' against
 its plain version and a step with K1' against one with the plain chain,
@@ -269,18 +273,23 @@ def phase_sweep(dev, card):
         print(f"sweep n_blocks={nb}: K1 {k1:.4f} ms, K2 {k2:.4f} ms [{card}]")
 
 
-def build_model(dev, dtype=None, pallas_mlp=False):
-    """The full-width nerf_1_view_wo renderer (configs/nerf_1_view_wo.yaml:
-    1 view, 480x640, n_features 256, hidden 128, 6 blocks, 64+64 samples,
-    near 0.3, far 1.3, ViT-B/16 at 224^2, hooks 3/6/9/12), seeded weights."""
+def build_model(dev, dtype=None, pallas_mlp=False, fusion="without",
+                n_views=1, **kw):
+    """A full-width stage-1 renderer, seeded weights: nerf_model/default.yaml
+    (480x640, n_features 256, hidden 128, 6 blocks, 64+64 samples, near 0.3,
+    far 1.3, ViT-B/16 at 224^2, hooks 3/6/9/12) with `n_views` and `fusion`
+    as nerf_1_view_wo ("without", 1 view), nerf_1_view (v0, 1),
+    nerf_3_view (v0, 3) or nerf_1_view_v4_elu (v4, 1, `fusion_use_dense`,
+    elu) name them; the fused models add the CLIP RN50 tower (layers
+    3/4/6/3, width 64, embed 1024, 32 heads, 224^2)."""
     import torch
     from tcnerf_torch.models.renderer import MVNeRFRenderer
     from tcnerf_torch.params import init_params
 
     model = MVNeRFRenderer(
-        n_views=1, n_samples=N_SAMPLES, n_features=256, near=0.3, far=1.3,
-        original_image_size=(H, W), fusion="without", n_blocks=6,
-        hidden_size=HID, pallas_mlp=pallas_mlp, dtype=dtype).to(dev)
+        n_views=n_views, n_samples=N_SAMPLES, n_features=256, near=0.3,
+        far=1.3, original_image_size=(H, W), fusion=fusion, n_blocks=6,
+        hidden_size=HID, pallas_mlp=pallas_mlp, dtype=dtype, **kw).to(dev)
     init_params(model, torch.Generator(device=dev).manual_seed(0))
     return model.eval()
 
@@ -310,20 +319,27 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+RANGE_PREFIX = "tcnerf."
+
+
 def device_time_by_kernel(fn, card, top=8):
     """One call of fn under torch.profiler: device time summed by kernel
     name, and the device's busy share of the host wall time (the profiler
-    slows the host side a little, so the busy share is a lower bound)."""
+    slows the host side a little, so the busy share is a lower bound); then
+    the port's `record_function` ranges ("tcnerf.*": encoder, CLIP tower,
+    fusion, chunks) with their host and device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = timed(fn)
+    events = prof.key_averages()
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
+                   for e in events
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith(RANGE_PREFIX)), reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
         print("profile: no device time recorded (not measured)")
@@ -334,33 +350,22 @@ def device_time_by_kernel(fn, card, top=8):
     for ms, count, name in rows[:top]:
         print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% x{count:<5d} "
               f"{name[:90]}")
+    for e in events:                 # the port's record_function ranges
+        if e.key.startswith(RANGE_PREFIX):
+            print(f"  range {e.key} ({e.device_type}): host "
+                  f"{e.cpu_time_total / 1e3:.2f} ms, device "
+                  f"{e.device_time_total / 1e3:.2f} ms, x{e.count}")
 
 
-def phase_serve(dev, card, scene, launches):
-    """render_view on the swg path (K2), then one chunk kernel vs plain."""
+def check_swg_chunk(model, scene, dev, tag):
+    """The model's feature image through the full-image swg render (finite,
+    no overflow), then one 8192-ray chunk (the middle rows) through the
+    kernel and its plain version at the bf16-prepared chunk bar."""
     import numpy as np
     import torch
     from tcnerf_torch.models import fused, inference
 
-    model = build_model(dev)
     src, src_cfg, tgt_cfg = scene
-    args = (model, [src], [src_cfg], tgt_cfg)
-    kw = dict(generator=torch.Generator(device=dev).manual_seed(1),
-              device=dev)
-    (rgb, depth), t_first = timed(lambda: inference.render_view(*args, **kw))
-    reset_counts()
-    (rgb, depth), t = timed(lambda: inference.render_view(*args, **kw))
-    counts = read_counts()
-    launches["K2"] = counts.get("swg_head_inside", 0)
-    print(f"serve swg render_view {H}x{W}: {t * 1e3:.1f} ms "
-          f"({H * W / t:.0f} rays/s; first call {t_first * 1e3:.1f} ms); "
-          f"launches {counts} [{card}]")
-    if launches["K2"] == 0:
-        raise AssertionError("render_view did not launch the swg kernel")
-    if rgb.shape != (H, W, 3) or depth.shape != (H, W, 1):
-        raise AssertionError(f"render_view shapes {rgb.shape} {depth.shape}")
-    device_time_by_kernel(lambda: inference.render_view(*args, **kw), card)
-
     with torch.inference_mode():
         src_t = torch.as_tensor(src[None, None] / 255.0, dtype=torch.float32,
                                 device=dev)
@@ -377,10 +382,10 @@ def phase_serve(dev, card, scene, launches):
             model, src_t, k4, ext, feats[None], pose, k3, H, W, CHUNK,
             generator=torch.Generator(device=dev).manual_seed(2))
         if not (torch.isfinite(fine_rgb).all() and torch.isfinite(fine_depth).all()):
-            raise AssertionError("swg full-image render is not finite")
+            raise AssertionError(f"{tag} full-image render is not finite")
         if tuple(fine_rgb.shape) != (H, W, 3) or n_over != 0:
-            raise AssertionError("swg full-image render: shape or overflow")
-        print(f"serve swg full image: finite, rgb mean "
+            raise AssertionError(f"{tag} full-image render: shape or overflow")
+        print(f"serve {tag} full image: finite, rgb mean "
               f"{float(fine_rgb.mean()):.4f}, depth range "
               f"[{float(fine_depth.min()):.4f}, {float(fine_depth.max()):.4f}]")
 
@@ -404,12 +409,202 @@ def phase_serve(dev, card, scene, launches):
                                    outs[0][:4], outs[1][:4]):
             err = float((got - want).abs().max())
             ok = bool(torch.allclose(got, want, rtol=3e-2, atol=2e-2))
-            print(f"check swg chunk {name}: kernel vs plain max_abs_err="
+            print(f"check {tag} chunk {name}: kernel vs plain max_abs_err="
                   f"{err:.6g} (rtol 3e-2, atol 2e-2: the bf16-prepared render "
                   f"chunk bar) {'OK' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"swg chunk {name} disagrees")
+                raise AssertionError(f"{tag} chunk {name} disagrees")
+
+
+def phase_serve(dev, card, scene, launches):
+    """render_view on the swg path (K2), then one chunk kernel vs plain."""
+    import torch
+    from tcnerf_torch.models import inference
+
+    model = build_model(dev)
+    src, src_cfg, tgt_cfg = scene
+    args = (model, [src], [src_cfg], tgt_cfg)
+    kw = dict(generator=torch.Generator(device=dev).manual_seed(1),
+              device=dev)
+    (rgb, depth), t_first = timed(lambda: inference.render_view(*args, **kw))
+    reset_counts()
+    (rgb, depth), t = timed(lambda: inference.render_view(*args, **kw))
+    counts = read_counts()
+    launches["K2"] = counts.get("swg_head_inside", 0)
+    print(f"serve swg render_view {H}x{W}: {t * 1e3:.1f} ms "
+          f"({H * W / t:.0f} rays/s; first call {t_first * 1e3:.1f} ms); "
+          f"launches {counts} [{card}]")
+    if launches["K2"] == 0:
+        raise AssertionError("render_view did not launch the swg kernel")
+    if rgb.shape != (H, W, 3) or depth.shape != (H, W, 1):
+        raise AssertionError(f"render_view shapes {rgb.shape} {depth.shape}")
+    device_time_by_kernel(lambda: inference.render_view(*args, **kw), card)
+
+    check_swg_chunk(model, scene, dev, "swg")
     del model
+
+
+def serve_view(model, scene, dev, n_views=3, **kw):
+    """render_view once (the first call), then `n_views` times with the
+    counts set to 0 before each; returns (rgb, depth, first call s, view
+    times s, counts of the last view)."""
+    import torch
+    from tcnerf_torch.models import inference
+
+    src, src_cfg, tgt_cfg = scene
+    srcs, cfgs = (src, src_cfg) if isinstance(src, list) else ([src], [src_cfg])
+
+    def view():
+        return inference.render_view(
+            model, srcs, cfgs, tgt_cfg, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1), **kw)
+
+    _, t_first = timed(view)
+    times = []
+    for _ in range(n_views):
+        reset_counts()
+        (rgb, depth), t = timed(view)
+        counts = read_counts()
+        times.append(t)
+    if rgb.shape != (H, W, 3) or depth.shape != (H, W, 1):
+        raise AssertionError(f"render_view shapes {rgb.shape} {depth.shape}")
+    return rgb, depth, t_first, times, counts
+
+
+def phase_serve_clip(dev, card, scene, launches):
+    """nerf_1_view (fusion v0) at full width: render_view on the swg path
+    (K2, as many launches as the "without" view), its steady latency, one
+    profiled view split by the port's ranges, the v0 feature image through
+    one chunk kernel vs plain. Then
+    nerf_1_view_v4_elu (v4, elu, dense text gate) with a text embedding
+    from the CLIP text tower on the card (tokenize(["a red ball"])): a
+    finite view that differs from the ones-placeholder view."""
+    import numpy as np
+    import torch
+    from tcnerf_torch.clip.model import CLIPTextualEncoder
+    from tcnerf_torch.clip.tokenizer import tokenize
+    from tcnerf_torch.models import inference
+    from tcnerf_torch.params import init_params
+
+    model = build_model(dev, fusion="v0")
+    rgb, _, t_first, times, counts = serve_view(model, scene, dev)
+    launches["K2 v0"] = counts.get("swg_head_inside", 0)
+    want = 2 * -(-H * W // CHUNK)
+    t = float(np.median(times))
+    print(f"serve v0 swg render_view {H}x{W}: steady {t * 1e3:.1f} ms "
+          f"(median of {[round(x * 1e3, 1) for x in times]}), "
+          f"{H * W / t:.0f} rays/s; first call {t_first * 1e3:.1f} ms; "
+          f"launches {counts} [{card}]")
+    if launches["K2 v0"] != want:
+        raise AssertionError(f"the v0 view launched K2 {launches['K2 v0']}"
+                             f" times, not {want}")
+    src, src_cfg, tgt_cfg = scene
+    device_time_by_kernel(lambda: inference.render_view(
+        model, [src], [src_cfg], tgt_cfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1)), card, top=10)
+    check_swg_chunk(model, scene, dev, "v0 swg")
+    del model
+
+    model = build_model(dev, fusion="v4", fusion_use_dense=True,
+                        fusion_activation="elu")
+    text_tower = CLIPTextualEncoder().to(dev)
+    init_params(text_tower, torch.Generator(device=dev).manual_seed(1))
+    src_t = torch.as_tensor(src[None] / 255.0, dtype=torch.float32,
+                            device=dev)
+    with torch.inference_mode():
+        tokens = torch.as_tensor(tokenize(["a red ball"]), device=dev)
+        text = text_tower(tokens)
+        feats, _ = model.combine_features(src_t, clip_textuals=text)
+        placeholder, _ = model.combine_features(src_t)
+    if not (torch.isfinite(text).all() and torch.isfinite(feats).all()):
+        raise AssertionError("v4 text embedding or feature image not finite")
+    gap = float((feats - placeholder).abs().max())
+    rgb_t, _, _, times, counts = serve_view(model, scene, dev, n_views=1,
+                                            clip_textuals=text)
+    rgb_1, _, _, _, _ = serve_view(model, scene, dev, n_views=1)
+    diff = int((rgb_t != rgb_1).any(-1).sum())
+    print(f"serve v4-elu (dense text gate) render_view {H}x{W} with the "
+          f"text tower's embedding of 'a red ball' {tuple(text.shape)}: "
+          f"{times[0] * 1e3:.1f} ms; features max |text - ones| {gap:.4g}; "
+          f"{diff} of {H * W} pixels differ from the placeholder view; "
+          f"launches {counts} [{card}]")
+    if not gap > 0 or diff == 0:
+        raise AssertionError("the text embedding does not change the view")
+    del model, text_tower
+
+
+def phase_serve_3view(dev, card, launches):
+    """nerf_3_view (fusion v0), bf16 model, pallas_mlp: render_view on the
+    flax path (K1 in both chain halves, the mean view fusion between them)
+    from 3 sources of camera_ring(4) at 480x640, 8192-ray chunks; then the
+    same view's float image through render_all_rays (finite), and K1 timed
+    at the path's four shapes for its x gap."""
+    import numpy as np
+    import torch
+    from tcnerf_torch.data.synthetic import camera_ring
+    from tcnerf_torch.models import inference
+    from tcnerf_torch.ops.resmlp import pack_chain, resmlp_rows
+    from tcnerf_torch.tools.common import bound_ms, random_chain, time_ms
+
+    model = build_model(dev, dtype=torch.bfloat16, pallas_mlp=True,
+                        fusion="v0", n_views=3)
+    cfgs = camera_ring(4, height=H, width=W)
+    rng = np.random.default_rng(1)
+    srcs = [rng.integers(0, 256, (H, W, 3), dtype=np.uint8) for _ in range(3)]
+    scene = (srcs, list(cfgs[:3]), cfgs[3])
+    _, _, t_first, times, counts = serve_view(model, scene, dev, n_views=1,
+                                              chunk=CHUNK, use_swg=False)
+    launches["K1 3-view"] = counts.get("resmlp_rows", 0)
+    n_chunks = -(-H * W // CHUNK)
+    print(f"serve 3-view v0 flax-path (pallas_mlp, bf16) render_view "
+          f"{H}x{W}: {times[0] * 1e3:.1f} ms ({H * W / times[0]:.0f} rays/s; "
+          f"first call {t_first * 1e3:.1f} ms); launches {counts} [{card}]")
+    if launches["K1 3-view"] != 4 * n_chunks:
+        raise AssertionError(f"the 3-view view launched K1 "
+                             f"{launches['K1 3-view']} times, not "
+                             f"{4 * n_chunks}")
+    with torch.inference_mode():
+        src_t = torch.as_tensor(np.asarray(srcs)[None] / 255.0,
+                                dtype=torch.float32, device=dev)
+        k4 = np.tile(np.eye(4), (3, 1, 1))
+        k4[:, :3, :3] = [np.reshape(c["intrinsics"], (3, 3)) for c in cfgs[:3]]
+        ext = np.asarray([np.linalg.inv(c["pose"]) for c in cfgs[:3]])
+        k4, ext = (torch.as_tensor(a[None], dtype=torch.float32, device=dev)
+                   for a in (k4, ext))
+        feats, _ = model.combine_features(src_t[0])
+        rgb, depth = inference.render_all_rays(
+            model, src_t, k4, ext, feats[None],
+            torch.as_tensor(cfgs[3]["pose"], dtype=torch.float32, device=dev),
+            torch.as_tensor(np.reshape(cfgs[3]["intrinsics"], (3, 3)),
+                            dtype=torch.float32, device=dev), H, W, CHUNK,
+            generator=torch.Generator(device=dev).manual_seed(2))
+    if not (torch.isfinite(rgb.float()).all()
+            and torch.isfinite(depth.float()).all()):
+        raise AssertionError("the 3-view view is not finite")
+    print(f"serve 3-view full image: finite, rgb mean "
+          f"{float(rgb.float().mean()):.4f}")
+    del model, feats
+
+    # K1 at the view's shapes: per chunk and stage, the first chain half on
+    # 3 views' rows, the second on the fused rows (3 blocks each, bf16)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    wts = random_chain(gen, 3, None, 0, dev)
+    pk = pack_chain(wts, 3, skip_input=True)
+    gap, parts = 0.0, []
+    for stage, s in (("coarse", N_SAMPLES), ("fine", 2 * N_SAMPLES)):
+        for half, v in (("first", 3), ("second", 1)):
+            n = v * CHUNK * s
+            x = torch.randn((n, HID), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            ms = time_ms(lambda: resmlp_rows(x, wts, 3, skip_input=True,
+                                             pack=pk), dev, 10)
+            b = bound_ms(2 * n * 6 * HID * HID, 2 * n * HID * 2)[0]
+            gap += n_chunks * (ms - b)
+            parts.append(f"{stage} {half} half [{n}x128] {ms:.4f} ms "
+                         f"(bound {b:.4f})")
+            del x
+    print(f"time K1 on the 3-view path: {'; '.join(parts)}; x gap "
+          f"{gap:.1f} ms a view ({n_chunks} chunks) [{card}]")
 
 
 def phase_flax(dev, card, scene, launches):
@@ -487,13 +682,15 @@ def phase_f32(dev, card, scene, launches, n_chunks=4):
     del model
 
 
-# The trainer's configuration is nerf_1_view_wo at full width; the synthetic
-# dataset is cut to 8 scenes x 4 perspectives at 480x640, and the run to 4
-# steps (one epoch of 8 scenes at batch 8 each) and two validation renders.
+# The trainer's configuration is nerf_1_view_wo at full width with the chain
+# halves on K1' (pallas_mlp, off by default as in the JAX trainer); the
+# synthetic dataset is cut to 8 scenes x 4 perspectives at 480x640, and the
+# run to 4 steps (one epoch of 8 scenes at batch 8 each) and two validation
+# renders.
 TRAIN_CUT = ["dataset.n_perspectives=4", "dataset.n_synthetic_samples=8",
              "nerf_training.n_epochs=4", "nerf_training.eval_after_epochs=4",
              "valid_sample_idx=0", "valid_perspective_src_indices=[0]",
-             "valid_perspective_tgt_idx=2"]
+             "valid_perspective_tgt_idx=2", "nerf_model.pallas_mlp=true"]
 
 
 def check_k1_diff(dev, card):
@@ -874,6 +1071,8 @@ def main(argv) -> int:
     phase_serve(dev, card, scene, launches)
     phase_flax(dev, card, scene, launches)
     phase_f32(dev, card, scene, launches)
+    phase_serve_clip(dev, card, scene, launches)
+    phase_serve_3view(dev, card, launches)
     # after the serving phases, which thus run as they did before it existed
     kres.update(phase_gather(dev, card, launches))
     kres.update(phase_train(dev, card, launches))
@@ -886,6 +1085,9 @@ def main(argv) -> int:
                      "max_abs_err": r["err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],
+                     # the same kernel's launches on the CLIP-fused views
+                     **{f"launches_{tag}": launches[f"{k} {tag}"]
+                        for tag in ("v0", "3-view") if f"{k} {tag}" in launches},
                      # no single PyTorch call computes K1-K3's fused chain
                      "library_ms": r.get("library_ms"),
                      **{key: r[key] for key in ("coarse_ms", "backward_ms",

@@ -3,7 +3,9 @@
 Features are encoded once, then the target view's rays run through a
 Python loop over ray chunks: on the fused swg path (the serving default on
 the card; always the bf16 stream) or on the flax-shaped `render_rays` path.
-Rays padding the last chunk get origin 0 and direction 1.
+Rays padding the last chunk get origin 0 and direction 1. The chunk loop
+is the profiler range "tcnerf.chunks" (the swg path's weight packing
+"tcnerf.swg_prepare"; the encoder's ranges are the renderer's).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core.rays import get_rays
 from ..data.generators import camera_parameters
@@ -54,14 +57,15 @@ def render_all_rays(model, src_images, src_intrinsics, src_extrinsics_inv,
     chunks_o, chunks_d, n = _ray_chunks(tgt_pose, tgt_intrinsics3, height,
                                         width, chunk)
     rgbs, depths = [], []
-    for i in range(chunks_o.shape[0]):
-        u_c, u_f = draws[i] if draws is not None else (None, None)
-        _, _, fine_rgb, fine_depth = model.render_rays(
-            chunks_o[i], chunks_d[i], src_images, src_intrinsics,
-            src_extrinsics_inv, combined_features, u_coarse=u_c, u_fine=u_f,
-            generator=generator)
-        rgbs.append(fine_rgb[0])
-        depths.append(fine_depth[0])
+    with record_function("tcnerf.chunks"):
+        for i in range(chunks_o.shape[0]):
+            u_c, u_f = draws[i] if draws is not None else (None, None)
+            _, _, fine_rgb, fine_depth = model.render_rays(
+                chunks_o[i], chunks_d[i], src_images, src_intrinsics,
+                src_extrinsics_inv, combined_features, u_coarse=u_c,
+                u_fine=u_f, generator=generator)
+            rgbs.append(fine_rgb[0])
+            depths.append(fine_depth[0])
     return _assemble(rgbs, depths, n, height, width)
 
 
@@ -74,24 +78,27 @@ def render_all_rays_swg(model, src_images, src_intrinsics, src_extrinsics_inv,
     whatever the model dtype. Returns (fine_rgb, fine_depth, n_overflow=0)."""
     chunks_o, chunks_d, n = _ray_chunks(tgt_pose, tgt_intrinsics3, height,
                                         width, chunk)
-    prepared = swg_prepare(model, src_images, combined_features,
-                           n_blocks=model.n_blocks, dtype=torch.bfloat16)
+    with record_function("tcnerf.swg_prepare"):
+        prepared = swg_prepare(model, src_images, combined_features,
+                               n_blocks=model.n_blocks, dtype=torch.bfloat16)
     rgbs, depths = [], []
-    for i in range(chunks_o.shape[0]):
-        u_c, u_f = draws[i] if draws is not None else (None, None)
-        _, _, fine_rgb, fine_depth, _ = swg_render_chunk(
-            prepared, chunks_o[i], chunks_d[i], src_intrinsics,
-            src_extrinsics_inv, n_samples=model.n_samples, near=model.near,
-            far=model.far, n_blocks=model.n_blocks, u_coarse=u_c,
-            u_fine=u_f, generator=generator)
-        rgbs.append(fine_rgb[0])
-        depths.append(fine_depth[0])
+    with record_function("tcnerf.chunks"):
+        for i in range(chunks_o.shape[0]):
+            u_c, u_f = draws[i] if draws is not None else (None, None)
+            _, _, fine_rgb, fine_depth, _ = swg_render_chunk(
+                prepared, chunks_o[i], chunks_d[i], src_intrinsics,
+                src_extrinsics_inv, n_samples=model.n_samples,
+                near=model.near, far=model.far, n_blocks=model.n_blocks,
+                u_coarse=u_c, u_fine=u_f, generator=generator)
+            rgbs.append(fine_rgb[0])
+            depths.append(fine_depth[0])
     return _assemble(rgbs, depths, n, height, width) + (0,)
 
 
 def render_view(model, src_colors, src_camera_configs, tgt_camera_config,
                 generator: Optional[torch.Generator] = None,
-                chunk: Optional[int] = None, use_swg: Optional[bool] = None,
+                chunk: Optional[int] = None, clip_outputs=None,
+                clip_textuals=None, use_swg: Optional[bool] = None,
                 device=None):
     """Render the target camera's full view from source images.
 
@@ -100,7 +107,10 @@ def render_view(model, src_colors, src_camera_configs, tgt_camera_config,
     min-max-normalised depth uint8 [H, W, 1]). `model` must live on
     `device` (default cuda). use_swg: the fused swg path; default on for
     the 1-view, hidden-128, direction-encoded model on the card. chunk:
-    rays per chunk, default 8192 on the swg path and 512 otherwise."""
+    rays per chunk, default 8192 on the swg path and 512 otherwise.
+    clip_outputs / clip_textuals go to `combine_features` (a CLIP-fused
+    model computes the first from the sources and gates on ones when they
+    are None)."""
     dev = resolve_device(device)
     param = next(model.parameters())
     if param.device.type != dev.type:
@@ -123,7 +133,8 @@ def render_view(model, src_colors, src_camera_configs, tgt_camera_config,
         use_swg = (v == 1 and model.hidden_size == 128
                    and model.embed_direction_vector and dev.type == "cuda")
     with torch.inference_mode():
-        combined, _ = model.combine_features(src_images[0])
+        combined, _ = model.combine_features(src_images[0], clip_outputs,
+                                             clip_textuals)
         combined = combined[None]
         args = (model, src_images, src_intr, src_ext, combined, tgt_pose,
                 tgt_intr3, h, w)

@@ -1,15 +1,20 @@
 """Multi-view pixel-conditioned NeRF renderer (tcnerf/models/renderer.py).
 
-This slice ports `field="pixel"` with `fusion="without"`: `encode`,
-`combine_features`, `render_rays` and `_field`, with `corner_gather` True
-(pre-projected corner-row gather) and False (4-tap gather). The
-constructor keeps the flax module's argument names so configs map one to
-one; the CLIP fusions (v0..v4) and the hash-grid field raise
-NotImplementedError until their slices are ported.
+`field="pixel"` with every fusion: "without" (the visual features
+upsampled 2x) and "v0".."v4" (the frozen CLIP RN50 tower on the
+preprocessed sources, fused by CombineCLIPVisualV0..V4; v3/v4 gate on a
+text embedding, a ones placeholder unless the caller passes one), and
+`corner_gather` True (pre-projected corner-row gather) or False (4-tap
+gather). The constructor keeps the flax module's argument names so configs
+map one to one; the hash-grid field raises NotImplementedError.
 
 Sampling draws: `render_rays` takes the coarse jitter and the PDF uniforms
 as optional explicit tensors (`u_coarse` [B, R, S], `u_fine` [B, R, S]);
 otherwise it draws them from `generator`.
+
+`combine_features` names its parts for the profiler (`record_function`):
+"tcnerf.encode" (ViT/DPT + conv encoder), "tcnerf.clip" (preprocess and
+the CLIP tower), "tcnerf.combine" (the fusion, or the 2x upsample).
 
 `remat` checkpoints the two embeddings and `VisualFeatures` while autograd
 records (torch.utils.checkpoint): their activations are recomputed in the
@@ -23,10 +28,14 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..core import projection, render, sampling
+from ..clip.model import CLIPVisualEncoder
+from ..clip.preprocess import preprocess
 from ..nn.blocks import RenderReadout
+from ..nn.fusion import FUSIONS
 from ..nn.layers import resize_bilinear
 from ..nn.mlp import MVResNetMLPEmbedding
 from ..nn.vit import VisualFeatures
@@ -63,9 +72,9 @@ class MVNeRFRenderer(nn.Module):
         super().__init__()
         if field != "pixel":
             raise NotImplementedError(f"field={field!r} is not ported yet")
-        if fusion != "without":
-            raise NotImplementedError(f"fusion={fusion!r} is not ported yet")
-        # clip_* / hashgrid_* / fusion_* knobs configure parts not ported yet
+        if fusion != "without" and fusion not in FUSIONS:
+            raise ValueError(f"unknown fusion {fusion!r}")
+        # the hashgrid_* knobs configure the field that is not ported yet
         self.n_views = n_views
         self.n_samples = n_samples
         self.n_features = n_features
@@ -80,6 +89,8 @@ class MVNeRFRenderer(nn.Module):
         self.remat = remat
         self.dtype = _dtype(dtype)
         self.encoder_dtype = _dtype(encoder_dtype)
+        self.clip_image_size = clip_image_size
+        self.clip_embed_dim = clip_embed_dim
         kw = dict(n_input_features=n_features + 3, n_blocks=n_blocks,
                   hidden_size=hidden_size, n_views=n_views,
                   embed_direction_vector=embed_direction_vector,
@@ -93,6 +104,20 @@ class MVNeRFRenderer(nn.Module):
             vit_size=vit_size, patch_size=vit_patch, embed_dim=vit_dim,
             num_heads=vit_heads, hooks=vit_hooks,
             dtype=self.encoder_dtype or self.dtype)
+        if fusion != "without":
+            self.clip_visual = CLIPVisualEncoder(
+                layers=tuple(clip_layers), width=clip_width,
+                output_dim=clip_embed_dim, heads=max(clip_width // 2, 1),
+                image_size=clip_image_size, dtype=self.dtype)
+            clip_channels = tuple(clip_width * 4 * 2 ** i for i in range(4))
+            if fusion in ("v3", "v4"):
+                self.combine_clip_visual = FUSIONS[fusion](
+                    clip_channels, n_features, clip_embed_dim,
+                    use_dense=fusion_use_dense, activation=fusion_activation,
+                    dtype=self.dtype)
+            else:
+                self.combine_clip_visual = FUSIONS[fusion](
+                    clip_channels, n_features, dtype=self.dtype)
 
     # ------------------------------------------------------------ features
 
@@ -109,13 +134,31 @@ class MVNeRFRenderer(nn.Module):
             out = out.to(self.dtype or torch.float32)
         return out
 
-    def combine_features(self, src_images_flat: torch.Tensor):
-        """'without': the visual features upsampled 2x -> (feature image
-        [B*V, H, W, n_features], aux loss 0)."""
-        vis = self.encode(src_images_flat)
-        n, h, w, _ = vis.shape
-        up = resize_bilinear(vis, (h * 2, w * 2))
-        return up, torch.zeros((), dtype=up.dtype, device=up.device)
+    def combine_features(self, src_images_flat: torch.Tensor,
+                         clip_outputs=None, clip_textuals=None):
+        """Full fused feature image [B*V, H, W, n_features] and the aux loss.
+
+        'without': the visual features upsampled 2x, aux 0. v0..v4: the
+        fusion of `clip_outputs` (the CLIP tower's 5-tuple; computed from
+        the preprocessed sources when None) with the visual features, gated
+        by `clip_textuals` [B*V, clip_embed_dim] (ones when None)."""
+        with record_function("tcnerf.encode"):
+            vis = self.encode(src_images_flat)
+        if self.fusion == "without":
+            with record_function("tcnerf.combine"):
+                n, h, w, _ = vis.shape
+                up = resize_bilinear(vis, (h * 2, w * 2))
+            return up, torch.zeros((), dtype=up.dtype, device=up.device)
+        if clip_outputs is None:
+            with record_function("tcnerf.clip"):
+                clip_outputs = self.clip_visual(
+                    preprocess(src_images_flat, self.clip_image_size))
+        if clip_textuals is None:
+            clip_textuals = torch.ones(
+                (src_images_flat.shape[0], self.clip_embed_dim),
+                dtype=vis.dtype, device=vis.device)
+        with record_function("tcnerf.combine"):
+            return self.combine_clip_visual(clip_outputs, vis, clip_textuals)
 
     # ----------------------------------------------------------- rendering
 
@@ -188,13 +231,16 @@ class MVNeRFRenderer(nn.Module):
                           flat(feats), corner_img is not None)
         return readout(emb)
 
-    def forward(self, inputs, u_coarse=None, u_fine=None, generator=None):
+    def forward(self, inputs, u_coarse=None, u_fine=None, generator=None,
+                clip_outputs=None, clip_textuals=None):
         """Encode + fuse features, then render. inputs = (ray_origins,
-        ray_directions, src_images, src_intrinsics, src_extrinsics_inv)."""
+        ray_directions, src_images, src_intrinsics, src_extrinsics_inv).
+        Returns (rgb, depth, fine_rgb, fine_depth, aux)."""
         ray_o, ray_d, src_images, src_intr, src_ext_inv = inputs
         b, v = src_images.shape[:2]
         combined, aux = self.combine_features(
-            src_images.reshape((b * v,) + src_images.shape[2:]))
+            src_images.reshape((b * v,) + src_images.shape[2:]),
+            clip_outputs, clip_textuals)
         combined = combined.reshape((b, v) + combined.shape[1:])
         out = self.render_rays(ray_o, ray_d, src_images, src_intr,
                                src_ext_inv, combined, u_coarse, u_fine,

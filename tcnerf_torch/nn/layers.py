@@ -122,33 +122,81 @@ class ConvTranspose(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
-def resize_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
-    """[in, out] weights of jax.image.resize(method="bilinear") along one
-    axis: half-pixel centres, triangle kernel widened by in/out when it
-    shrinks (antialias), weights renormalised over in-range samples
-    (jax/_src/image/scale.py compute_weight_mat)."""
-    inv_scale = in_size / out_size
-    kernel_scale = max(inv_scale, 1.0)
-    sample = ((torch.arange(out_size, dtype=torch.float64) + 0.5) * inv_scale
-              - 0.5)
-    dist = (sample[None, :] - torch.arange(in_size, dtype=torch.float64)[:, None]
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x, min=0.0)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel with a = -0.5, on |x|."""
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
+    return torch.where(x >= 2.0, torch.zeros_like(x),
+                       torch.where(x >= 1.0, far, near))
+
+
+_KERNELS = {"bilinear": _triangle, "cubic": _keys_cubic}
+
+
+def resize_weights(in_size: int, out_size: int, device=None,
+                   method: str = "bilinear") -> torch.Tensor:
+    """[in, out] weights of jax.image.resize(method=...) along one axis
+    ("bilinear": triangle kernel, "cubic": Keys cubic, a = -0.5):
+    half-pixel centres, the kernel widened by in/out when it shrinks
+    (antialias), weights renormalised over in-range samples, all in f32
+    as jax/_src/image/scale.py compute_weight_mat computes them."""
+    f32 = torch.float32                 # jax's weak-typed scale: f32
+    inv_scale = 1.0 / torch.tensor(out_size / in_size, dtype=f32)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample = (torch.arange(out_size, dtype=f32) + 0.5) * inv_scale - 0.5
+    dist = (sample[None, :] - torch.arange(in_size, dtype=f32)[:, None]
             ).abs() / kernel_scale
-    w = torch.clamp(1.0 - dist, min=0.0)
+    w = _KERNELS[method](dist)
     total = w.sum(dim=0, keepdim=True)
     w = torch.where(total.abs() > 1000 * torch.finfo(torch.float32).eps,
                     w / torch.where(total != 0, total, torch.ones_like(total)),
                     torch.zeros_like(w))
     inside = (sample >= -0.5) & (sample <= in_size - 0.5)
     w = torch.where(inside[None, :], w, torch.zeros_like(w))
-    return w.to(device=device, dtype=torch.float32)
+    return w.to(device=device)
+
+
+def resize(x: torch.Tensor, size: Tuple[int, int],
+           method: str = "bilinear") -> torch.Tensor:
+    """jax.image.resize(x, (B, *size, C), method) for [B, H, W, C], as
+    separable weight-matrix products (fp32, core/prec.py); an axis whose
+    size does not change is left as is, as jax.image.resize leaves it."""
+    b, h, w, c = x.shape
+    if h != size[0]:
+        wh = resize_weights(h, size[0], x.device, method).to(x.dtype)
+        x = torch.einsum("bhwc,ho->bowc", x, wh)
+    if w != size[1]:
+        ww = resize_weights(w, size[1], x.device, method).to(x.dtype)
+        x = torch.einsum("bowc,wp->bopc", x, ww)
+    return x
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """jax.image.resize(x, (B, *size, C), "bilinear") for [B, H, W, C],
-    as two separable weight-matrix products (fp32, core/prec.py)."""
-    b, h, w, c = x.shape
-    wh = resize_weights(h, size[0], x.device).to(x.dtype)
-    ww = resize_weights(w, size[1], x.device).to(x.dtype)
-    y = torch.einsum("bhwc,ho->bowc", x, wh)
-    return torch.einsum("bowc,wp->bopc", y, ww)
+    """jax.image.resize(x, (B, *size, C), "bilinear") for [B, H, W, C]."""
+    return resize(x, size, "bilinear")
 
+
+def resize_cubic(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """jax.image.resize(x, (B, *size, C), "cubic") for [B, H, W, C]: Keys'
+    kernel (a = -0.5), antialiased when shrinking and renormalised at the
+    edges, which `F.interpolate(mode="bicubic")` (a = -0.75) is not."""
+    return resize(x, size, "cubic")
+
+
+def _pool(fn, x: torch.Tensor, window, strides) -> torch.Tensor:
+    y = fn(x.permute(0, 3, 1, 2), _pair(window), _pair(strides))
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool(x: torch.Tensor, window, strides) -> torch.Tensor:
+    """flax `nn.avg_pool` with VALID windows on [B, H, W, C]."""
+    return _pool(F.avg_pool2d, x, window, strides)
+
+
+def max_pool(x: torch.Tensor, window, strides) -> torch.Tensor:
+    """flax `nn.max_pool` with VALID windows on [B, H, W, C]."""
+    return _pool(F.max_pool2d, x, window, strides)

@@ -272,15 +272,20 @@ class _ResMLPDiff(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        x, *weights = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip([x, *weights], [ctx.needs_input_grad[0]]
-                      + list(ctx.needs_input_grad[6:]))]
-        wanted = [t for t in inputs if t.requires_grad]
+        """Differentiates the plain chain. Under `create_graph` (grad mode
+        on here) the recompute runs on the saved tensors themselves, so the
+        returned gradients carry the chain's second-order terms."""
+        higher = torch.is_grad_enabled()
+        need = [ctx.needs_input_grad[0]] + list(ctx.needs_input_grad[6:])
+        saved = ctx.saved_tensors
+        inputs = (list(saved) if higher else
+                  [t.detach().requires_grad_(n) for t, n in zip(saved, need)])
+        wanted = [t for t, n in zip(inputs, need) if n]
         with torch.enable_grad():
             out = resmlp_plain(inputs[0], inputs[1:], *ctx.cfg)
-            grads = iter(torch.autograd.grad(out, wanted, grad.to(out.dtype)))
-        dx, *dw = [next(grads) if t.requires_grad else None for t in inputs]
+            grads = iter(torch.autograd.grad(out, wanted, grad.to(out.dtype),
+                                             create_graph=higher))
+        dx, *dw = [next(grads) if n else None for n in need]
         return (dx, None, None, None, None, None, *dw)
 
 

@@ -10,8 +10,12 @@ its submodules as the flax modules are named, so a flax path
   ConvTranspose kernel HWIO (`*_deconv`, transpose_kernel=False)
                                      -> [in, out, kh, kw], spatially flipped
   DenseGeneral q/k/v [D, heads, hd]  -> [heads*hd, D]; bias [heads, hd] flat
-  DenseGeneral attn_out [heads, hd, D] -> [D, heads*hd]
-  cls_token, pos_embedding, LayerNorm / BatchStatNorm scale and bias: as is
+  DenseGeneral attn_out / out (AttentionPool2d) [heads, hd, D]
+                                     -> [D, heads*hd]
+  Embed `embedding` [vocab, width]   -> nn.Embedding `weight`, as is
+  cls_token, pos_embedding, positional_embedding, text_projection
+  ([width, out]), LayerNorm / BatchStatNorm scale and bias, FrozenBatchNorm
+  scale / bias / mean / var: as is
 """
 
 from __future__ import annotations
@@ -23,13 +27,17 @@ import numpy as np
 import torch
 
 
+# DenseGeneral modules that contract (heads, hd) into the output width
+_OUT_PROJECTIONS = ("attn_out", "out")
+
+
 def _convert(path, name: str, value: np.ndarray) -> tuple:
     a = np.asarray(value, dtype=np.float32)
     module = path[-1] if path else ""
     if name == "kernel":
         if a.ndim == 2:                       # Dense
             a = a.T
-        elif a.ndim == 3 and module == "attn_out":
+        elif a.ndim == 3 and module in _OUT_PROJECTIONS:
             a = a.reshape(-1, a.shape[-1]).T
         elif a.ndim == 3:                     # DenseGeneral q/k/v
             a = a.reshape(a.shape[0], -1).T
@@ -42,6 +50,8 @@ def _convert(path, name: str, value: np.ndarray) -> tuple:
         name = "weight"
     elif name == "bias" and a.ndim == 2:      # DenseGeneral q/k/v bias
         a = a.reshape(-1)
+    elif name == "embedding":                 # nn.Embed
+        name = "weight"
     return name, torch.from_numpy(np.array(a, dtype=np.float32))  # copy
 
 
@@ -63,23 +73,34 @@ def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 def init_params(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation with flax's default scales: weights normal with
-    std 1/sqrt(fan_in) (lecun), biases zero, norm scales one,
-    pos_embedding normal(0.02), cls_token zero. In place, on the model's
-    device (the generator must be on the same device)."""
+    std 1/sqrt(fan_in) (lecun), biases and BN means zero, norm scales and BN
+    variances one, pos_embedding normal(0.02), cls_token zero, and the CLIP
+    towers' own initialisers: token embedding normal(0.02), the text
+    positional embedding normal(0.01), AttentionPool2d's normal / sqrt(c),
+    text_projection normal / sqrt(width). In place, on the model's device
+    (the generator must be on the same device)."""
+    def normal(p, std):
+        p.copy_(std * torch.randn(p.shape, generator=generator,
+                                  device=p.device))
+
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "weight":
+            if name.endswith("token_embedding.weight"):
+                normal(p, 0.02)
+            elif leaf == "weight":
                 if p.dim() == 4 and name.endswith("_deconv.weight"):
                     fan_in = p.shape[0] * p.shape[2] * p.shape[3]
                 else:
                     fan_in = math.prod(p.shape[1:])
-                p.copy_(torch.randn(p.shape, generator=generator,
-                                    device=p.device) / math.sqrt(fan_in))
+                normal(p, 1 / math.sqrt(fan_in))
             elif leaf == "pos_embedding":
-                p.copy_(0.02 * torch.randn(p.shape, generator=generator,
-                                           device=p.device))
-            elif leaf == "scale":
+                normal(p, 0.02)
+            elif leaf == "positional_embedding":
+                normal(p, p.shape[-1] ** -0.5 if "attnpool" in name else 0.01)
+            elif leaf == "text_projection":
+                normal(p, p.shape[0] ** -0.5)
+            elif leaf in ("scale", "var"):
                 p.fill_(1.0)
-            else:                             # bias, cls_token
+            else:                             # bias, mean, cls_token
                 p.zero_()

@@ -1,4 +1,4 @@
-"""Stage-1 NeRF training (tcnerf/train/train_nerf.py) for fusion "without".
+"""Stage-1 NeRF training (tcnerf/train/train_nerf.py).
 
     python -m tcnerf_torch.train.train_nerf [key=value ...]
 
@@ -16,17 +16,19 @@ runs on the card; `device=cpu` runs on the CPU, e.g. at a tiny size:
         valid_perspective_tgt_idx=4
 
 The configuration is `train/config.py`'s `nerf_1_view_wo` with overrides.
-The model trains with `pallas_mlp` (the chain halves through K1',
-ops/resmlp.py `resmlp_rows_diff`), `remat` and the 4-tap gather
-(`corner_gather` off) unless `nerf_model.*` says otherwise; the JAX trainer
-defaults `pallas_mlp` off. Datasets are synthesized when `dataset.path`
+`build_model` takes the JAX trainer's knobs and defaults: `remat` and the
+4-tap gather (`corner_gather` off), the plain chain (`pallas_mlp` off;
+`nerf_model.pallas_mlp=true` runs the chain halves through K1',
+ops/resmlp.py `resmlp_rows_diff`) and `fusion` "v0" where the config names
+none. Datasets are synthesized when `dataset.path`
 holds none. Each fit round of `eval_after_epochs` epochs ends with a
 validation render through `render_view` and its PSNR; a validation runs
 before the first round too.
 
 Not here, because their file formats need packages the card's machine
 lacks: checkpoints and resuming (flax msgpack) and the PNG validation strip
-(PIL). Neither does the fusion of CLIP features (`fusion` v0-v4).
+(PIL). Training is held against the JAX trainer for fusion "without" only;
+the CLIP-fused models (`fusion` v0-v4) are not compared in training yet.
 """
 
 from __future__ import annotations
@@ -51,21 +53,36 @@ log = logging.getLogger("tcnerf_torch.train")
 
 
 def build_model(cfg, device: torch.device) -> MVNeRFRenderer:
-    """The renderer of `cfg.nerf_model` on `device`, seeded weights."""
+    """The renderer of `cfg.nerf_model` on `device`, seeded weights. Every
+    knob and default is tcnerf/train/train_nerf.py `build_model`'s."""
     nm = cfg.nerf_model
     model = MVNeRFRenderer(
         n_views=nm.n_views, n_samples=nm.n_samples, n_features=nm.n_features,
         near=nm.near, far=nm.far,
         original_image_size=tuple(nm.original_image_size),
-        fusion=cfg.nerf_training.get("fusion", "without"),
+        fusion=cfg.nerf_training.get("fusion", "v0"),
         n_blocks=nm.get("n_blocks", 6), hidden_size=nm.get("hidden_size", 128),
         vit_size=tuple(nm.get("vit_size", (224, 224))),
         vit_patch=nm.get("vit_patch", 16), vit_dim=nm.get("vit_dim", 768),
         vit_heads=nm.get("vit_heads", 12),
         vit_hooks=tuple(nm.get("vit_hooks", (3, 6, 9, 12))),
+        clip_layers=tuple(nm.get("clip_layers", (3, 4, 6, 3))),
+        clip_width=nm.get("clip_width", 64),
+        clip_embed_dim=nm.get("clip_embed_dim", 1024),
+        clip_image_size=nm.get("clip_image_size", 224),
+        fusion_use_dense=nm.get("fusion_use_dense", False),
+        fusion_activation=nm.get("fusion_activation", "relu"),
         corner_gather=nm.get("corner_gather", False),
-        remat=nm.get("remat", True), pallas_mlp=nm.get("pallas_mlp", True),
-        encoder_dtype=nm.get("encoder_dtype", None)).to(device)
+        remat=nm.get("remat", True), pallas_mlp=nm.get("pallas_mlp", False),
+        encoder_dtype=nm.get("encoder_dtype", None),
+        field=nm.get("field", "pixel"),
+        hashgrid_levels=nm.get("hashgrid_levels", 16),
+        hashgrid_table_log2=nm.get("hashgrid_table_log2", 14),
+        hashgrid_hidden=nm.get("hashgrid_hidden", 64),
+        hashgrid_layers=nm.get("hashgrid_layers", 3),
+        hashgrid_bounds=tuple(tuple(b) for b in nm.get(
+            "hashgrid_bounds", ((-0.2, 1.2), (-0.8, 0.8), (-0.4, 1.0))))
+    ).to(device)
     init_params(model, torch.Generator(device=device).manual_seed(
         cfg.get("seed", 0)))
     return model

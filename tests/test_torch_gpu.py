@@ -464,3 +464,103 @@ def test_checkpointed_chunk_recompute_uses_the_same_draws(cuda):
     fwd, bwd, n_fwd, n_bwd = recompute_inputs(cuda)
     assert all(torch.equal(a, b) for a, b in zip(fwd, bwd))
     assert (n_fwd, n_bwd) == (16, 16)
+
+
+def _tiny_fused(device, n_views=1, **kw):
+    """A tiny CLIP-fused renderer (fusion v0 unless given): 48x64 sources,
+    n_features 256, CLIP layers (1, 1, 1, 1), width 8, 32^2, embed 32."""
+    m = MVNeRFRenderer(n_views=n_views, n_samples=8, n_features=256,
+                       near=0.3, far=1.3, original_image_size=(48, 64),
+                       n_blocks=2, hidden_size=HID, vit_size=(32, 32),
+                       vit_dim=32, vit_heads=2, vit_hooks=(1, 2, 3, 4),
+                       clip_layers=(1, 1, 1, 1), clip_width=8,
+                       clip_embed_dim=32, clip_image_size=32,
+                       **{"fusion": "v0", **kw})
+    init_params(m, torch.Generator().manual_seed(0))
+    return m.to(device).eval()
+
+
+def _fused_scene(device, n_views=1, n_rays=512, seed=14):
+    from tcnerf_torch.core.rays import get_specific_rays
+    from tcnerf_torch.data.synthetic import camera_ring
+    rng = np.random.default_rng(seed)
+    cfgs = camera_ring(n_views + 1, height=48, width=64, azimuth_span=0.6)
+    k4 = np.tile(np.eye(4), (n_views, 1, 1))
+    k4[:, :3, :3] = [c["intrinsics"].reshape(3, 3) for c in cfgs[:-1]]
+    ext = np.asarray([np.linalg.inv(c["pose"]) for c in cfgs[:-1]])
+    ro, rd = get_specific_rays(rng.uniform(0, 63, n_rays),
+                               rng.uniform(0, 47, n_rays), cfgs[-1]["pose"],
+                               cfgs[-1]["intrinsics"].reshape(3, 3))
+    src = rng.uniform(size=(1, n_views, 48, 64, 3))
+    u_c, u_f = rng.uniform(size=(2, 1, n_rays, 8))
+    return tuple(_tt(a).to(device) for a in (ro[None], rd[None], src, k4[None],
+                                              ext[None], u_c, u_f))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fusion", ["v0", "v4"])
+def test_fused_combine_features_on_card_matches_cpu(cuda, fusion):
+    """combine_features (encoder, preprocess, CLIP tower, fusion) on the
+    card against the same code on the CPU: f32 with TF32 off, 1e-4."""
+    from tcnerf_torch.core.prec import pin_fp32
+    pin_fp32()
+    kw = ({"fusion": "v4", "fusion_use_dense": True,
+           "fusion_activation": "elu"} if fusion == "v4" else {})
+    src = _fused_scene("cpu")[2][0]
+    text = torch.randn((1, 32), generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        want, _ = _tiny_fused("cpu", **kw).combine_features(src, None, text)
+        got, _ = _tiny_fused(cuda, **kw).combine_features(
+            src.to(cuda), None, text.to(cuda))
+    _close(got.cpu().numpy(), want.numpy(), 1e-4)
+
+
+@pytest.mark.gpu
+def test_v0_swg_chunk_kernel_matches_plain(cuda):
+    """A v0 model's feature image through swg_prepare and one chunk, K2
+    against its plain version at the bf16-prepared chunk bar (rtol 3e-2,
+    atol 2e-2)."""
+    from tcnerf_torch.models import fused
+    m = _tiny_fused(cuda)
+    ro, rd, src, k4, ext, u_c, u_f = _fused_scene(cuda)
+    before = SWG.counts["swg_head_inside"]
+    with torch.inference_mode():
+        feats, _ = m.combine_features(src[0])
+        prepared = fused.swg_prepare(m, src, feats[None], n_blocks=2,
+                                     dtype=torch.bfloat16)
+        outs = [fused.swg_render_chunk(prepared, ro, rd, k4, ext, n_samples=8,
+                                       n_blocks=2, u_coarse=u_c, u_fine=u_f,
+                                       plain=p) for p in (False, True)]
+    assert SWG.counts["swg_head_inside"] == before + 2
+    for got, want in zip(outs[0][:4], outs[1][:4]):
+        assert torch.isfinite(got).all()
+        assert torch.allclose(got, want, rtol=3e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_three_view_chunk_with_k1_matches_plain_chain(cuda):
+    """The 3-view v0 model (bf16) on one chunk of `render_rays`: both chain
+    halves through K1 (4 launches) against the plain chain on the same
+    weights. The coarse pass at the bf16 serving bar (2e-2 x max|ref|);
+    the fine pass, whose samples follow the coarse weights through the
+    PDF, at the bf16-prepared chunk bar (rtol 3e-2, atol 2e-2)."""
+    ro, rd, src, k4, ext, u_c, u_f = _fused_scene(cuda, n_views=3)
+    models = [_tiny_fused(cuda, n_views=3, pallas_mlp=p, dtype=torch.bfloat16)
+              for p in (True, False)]
+    models[1].load_state_dict(models[0].state_dict())
+    outs = []
+    with torch.inference_mode():
+        feats, _ = models[0].combine_features(src[0])
+        for m in models:
+            before = RESMLP.counts["resmlp_rows"]
+            outs.append(m.render_rays(ro, rd, src, k4, ext, feats[None],
+                                      u_coarse=u_c, u_fine=u_f))
+            launched = RESMLP.counts["resmlp_rows"] - before
+            assert launched == (4 if m.pallas_mlp else 0)
+    for i, (got, want) in enumerate(zip(*outs)):
+        got, want = got.float(), want.float()
+        assert torch.isfinite(got).all()
+        if i < 2:
+            _close(got.cpu().numpy(), want.cpu().numpy(), 2e-2)
+        else:
+            assert torch.allclose(got, want, rtol=3e-2, atol=2e-2)

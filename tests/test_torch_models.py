@@ -217,7 +217,10 @@ def test_render_view_device_rules(scene):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        MVNeRFRenderer(**{**CFG, "fusion": "v0"})
+    """The hash-grid field is not ported yet; every fusion is (v0-v4 are
+    held against flax in tests/test_torch_fusion.py), and an unknown one
+    is an error."""
     with pytest.raises(NotImplementedError):
         MVNeRFRenderer(**{**CFG, "field": "hashgrid"})
+    with pytest.raises(ValueError):
+        MVNeRFRenderer(**{**CFG, "fusion": "v5"})

@@ -512,7 +512,9 @@ def test_data_generator_matches_jax(tmp_path, monkeypatch):
 
 def test_trainer_runs_end_to_end_on_the_cpu(tmp_path):
     """The entry point at a tiny size: synthesized data, one step, a
-    validation render before and after; finite loss and PSNR."""
+    validation render before and after; finite loss and PSNR. The chain
+    halves run through K1' (`pallas_mlp`, off by default), as chip_smoke.py
+    trains."""
     cfg = config.load_config([
         "device=cpu", f"data_dir={tmp_path}",
         "nerf_model.original_image_size=[24,32]", "nerf_model.n_samples=4",
@@ -523,7 +525,7 @@ def test_trainer_runs_end_to_end_on_the_cpu(tmp_path):
         "nerf_training.eval_after_epochs=1", "nerf_training.batch_size=2",
         "dataset.n_perspectives=4", "dataset.n_synthetic_samples=2",
         "valid_sample_idx=0", "valid_perspective_src_indices=[0]",
-        "valid_perspective_tgt_idx=2"])
+        "valid_perspective_tgt_idx=2", "nerf_model.pallas_mlp=true"])
     state, history = train_nerf._main(cfg)
     assert state.step == 1 and len(history["steps"]) == 1
     assert np.isfinite(history["steps"][0]["loss"])
