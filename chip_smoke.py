@@ -357,26 +357,65 @@ def device_time_by_kernel(fn, card, top=8):
                   f"{e.device_time_total / 1e3:.2f} ms, x{e.count}")
 
 
+def scene_tensors(scene, dev):
+    """A scene (a source image and its camera config, or lists of them, and
+    the target's config) as `render_rays` takes it: sources [1, V, H, W, 3]
+    in [0, 1], K [1, V, 4, 4], inverse extrinsics [1, V, 4, 4], then the
+    target's pose and 3x3 K."""
+    import numpy as np
+    import torch
+    from tcnerf_torch.data.generators import camera_parameters
+
+    src, src_cfg, tgt_cfg = scene
+    srcs, cfgs = (src, src_cfg) if isinstance(src, list) else ([src], [src_cfg])
+    cams = [camera_parameters(c) for c in cfgs]
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return (f32(np.asarray(srcs)[None] / 255.0), f32([[c[1] for c in cams]]),
+            f32([[c[0] for c in cams]]), f32(tgt_cfg["pose"]),
+            f32(np.reshape(tgt_cfg["intrinsics"], (3, 3))))
+
+
+def middle_chunk(pose, k3, dev, seed=3):
+    """The target's middle 8192 rays [1, CHUNK, 3] and seeded coarse and
+    fine draws [1, CHUNK, N_SAMPLES]."""
+    import torch
+    from tcnerf_torch.core.rays import get_rays
+
+    ro, rd = get_rays(W, H, pose, k3)
+    sl = slice(H * W // 2, H * W // 2 + CHUNK)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u_c = torch.rand((1, CHUNK, N_SAMPLES), generator=gen, device=dev)
+    u_f = torch.rand((1, CHUNK, N_SAMPLES), generator=gen, device=dev)
+    return (ro.reshape(-1, 3)[sl][None], rd.reshape(-1, 3)[sl][None], u_c,
+            u_f)
+
+
+def check_chunk(name, got, want):
+    """The bf16-prepared render chunk bar: |got - want| <= 2e-2 + 3e-2
+    |want| everywhere (torch.allclose; false on any NaN)."""
+    import torch
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=3e-2, atol=2e-2))
+    print(f"check {name}: kernel vs plain max_abs_err={err:.6g} (rtol 3e-2, "
+          f"atol 2e-2: the bf16-prepared render chunk bar) "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees")
+
+
 def check_swg_chunk(model, scene, dev, tag):
     """The model's feature image through the full-image swg render (finite,
     no overflow), then one 8192-ray chunk (the middle rows) through the
     kernel and its plain version at the bf16-prepared chunk bar."""
-    import numpy as np
     import torch
     from tcnerf_torch.models import fused, inference
 
-    src, src_cfg, tgt_cfg = scene
+    src_t, k4, ext, pose, k3 = scene_tensors(scene, dev)
     with torch.inference_mode():
-        src_t = torch.as_tensor(src[None, None] / 255.0, dtype=torch.float32,
-                                device=dev)
-        ext = torch.as_tensor(np.linalg.inv(src_cfg["pose"])[None, None],
-                              dtype=torch.float32, device=dev)
-        k4 = np.eye(4)
-        k4[:3, :3] = np.reshape(src_cfg["intrinsics"], (3, 3))
-        k4 = torch.as_tensor(k4[None, None], dtype=torch.float32, device=dev)
-        pose = torch.as_tensor(tgt_cfg["pose"], dtype=torch.float32, device=dev)
-        k3 = torch.as_tensor(np.reshape(tgt_cfg["intrinsics"], (3, 3)),
-                             dtype=torch.float32, device=dev)
         feats, _ = model.combine_features(src_t[0])
         fine_rgb, fine_depth, n_over = inference.render_all_rays_swg(
             model, src_t, k4, ext, feats[None], pose, k3, H, W, CHUNK,
@@ -389,14 +428,7 @@ def check_swg_chunk(model, scene, dev, tag):
               f"{float(fine_rgb.mean()):.4f}, depth range "
               f"[{float(fine_depth.min()):.4f}, {float(fine_depth.max()):.4f}]")
 
-        # one 8192-ray chunk (the middle rows) through kernel and plain
-        from tcnerf_torch.core.rays import get_rays
-        ro, rd = get_rays(W, H, pose, k3)
-        sl = slice(H * W // 2, H * W // 2 + CHUNK)
-        ro, rd = ro.reshape(-1, 3)[sl][None], rd.reshape(-1, 3)[sl][None]
-        gen = torch.Generator(device=dev).manual_seed(3)
-        u_c = torch.rand((1, CHUNK, N_SAMPLES), generator=gen, device=dev)
-        u_f = torch.rand((1, CHUNK, N_SAMPLES), generator=gen, device=dev)
+        ro, rd, u_c, u_f = middle_chunk(pose, k3, dev)
         prepared = fused.swg_prepare(model, src_t, feats[None],
                                      n_blocks=model.n_blocks,
                                      dtype=torch.bfloat16)
@@ -405,60 +437,29 @@ def check_swg_chunk(model, scene, dev, tag):
                                        n_blocks=model.n_blocks, u_coarse=u_c,
                                        u_fine=u_f, plain=p)
                 for p in (False, True)]
-        for name, got, want in zip(("rgb", "depth", "fine_rgb", "fine_depth"),
-                                   outs[0][:4], outs[1][:4]):
-            err = float((got - want).abs().max())
-            ok = bool(torch.allclose(got, want, rtol=3e-2, atol=2e-2))
-            print(f"check {tag} chunk {name}: kernel vs plain max_abs_err="
-                  f"{err:.6g} (rtol 3e-2, atol 2e-2: the bf16-prepared render "
-                  f"chunk bar) {'OK' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{tag} chunk {name} disagrees")
+    for name, got, want in zip(("rgb", "depth", "fine_rgb", "fine_depth"),
+                               outs[0][:4], outs[1][:4]):
+        check_chunk(f"{tag} chunk {name}", got, want)
 
 
-def phase_serve(dev, card, scene, launches):
-    """render_view on the swg path (K2), then one chunk kernel vs plain."""
+def view_fn(model, scene, dev, **kw):
+    """render_view of the scene's target (seeded draws) as a call of no
+    arguments."""
     import torch
     from tcnerf_torch.models import inference
 
-    model = build_model(dev)
     src, src_cfg, tgt_cfg = scene
-    args = (model, [src], [src_cfg], tgt_cfg)
-    kw = dict(generator=torch.Generator(device=dev).manual_seed(1),
-              device=dev)
-    (rgb, depth), t_first = timed(lambda: inference.render_view(*args, **kw))
-    reset_counts()
-    (rgb, depth), t = timed(lambda: inference.render_view(*args, **kw))
-    counts = read_counts()
-    launches["K2"] = counts.get("swg_head_inside", 0)
-    print(f"serve swg render_view {H}x{W}: {t * 1e3:.1f} ms "
-          f"({H * W / t:.0f} rays/s; first call {t_first * 1e3:.1f} ms); "
-          f"launches {counts} [{card}]")
-    if launches["K2"] == 0:
-        raise AssertionError("render_view did not launch the swg kernel")
-    if rgb.shape != (H, W, 3) or depth.shape != (H, W, 1):
-        raise AssertionError(f"render_view shapes {rgb.shape} {depth.shape}")
-    device_time_by_kernel(lambda: inference.render_view(*args, **kw), card)
-
-    check_swg_chunk(model, scene, dev, "swg")
-    del model
+    srcs, cfgs = (src, src_cfg) if isinstance(src, list) else ([src], [src_cfg])
+    return lambda: inference.render_view(
+        model, srcs, cfgs, tgt_cfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1), **kw)
 
 
 def serve_view(model, scene, dev, n_views=3, **kw):
     """render_view once (the first call), then `n_views` times with the
     counts set to 0 before each; returns (rgb, depth, first call s, view
     times s, counts of the last view)."""
-    import torch
-    from tcnerf_torch.models import inference
-
-    src, src_cfg, tgt_cfg = scene
-    srcs, cfgs = (src, src_cfg) if isinstance(src, list) else ([src], [src_cfg])
-
-    def view():
-        return inference.render_view(
-            model, srcs, cfgs, tgt_cfg, device=dev,
-            generator=torch.Generator(device=dev).manual_seed(1), **kw)
-
+    view = view_fn(model, scene, dev, **kw)
     _, t_first = timed(view)
     times = []
     for _ in range(n_views):
@@ -471,6 +472,22 @@ def serve_view(model, scene, dev, n_views=3, **kw):
     return rgb, depth, t_first, times, counts
 
 
+def phase_serve(dev, card, scene, launches):
+    """render_view on the swg path (K2), then one chunk kernel vs plain."""
+    model = build_model(dev)
+    _, _, t_first, (t,), counts = serve_view(model, scene, dev, n_views=1)
+    launches["K2"] = counts.get("swg_head_inside", 0)
+    print(f"serve swg render_view {H}x{W}: {t * 1e3:.1f} ms "
+          f"({H * W / t:.0f} rays/s; first call {t_first * 1e3:.1f} ms); "
+          f"launches {counts} [{card}]")
+    if launches["K2"] == 0:
+        raise AssertionError("render_view did not launch the swg kernel")
+    device_time_by_kernel(view_fn(model, scene, dev), card)
+
+    check_swg_chunk(model, scene, dev, "swg")
+    del model
+
+
 def phase_serve_clip(dev, card, scene, launches):
     """nerf_1_view (fusion v0) at full width: render_view on the swg path
     (K2, as many launches as the "without" view), its steady latency, one
@@ -478,18 +495,18 @@ def phase_serve_clip(dev, card, scene, launches):
     one chunk kernel vs plain. Then
     nerf_1_view_v4_elu (v4, elu, dense text gate) with a text embedding
     from the CLIP text tower on the card (tokenize(["a red ball"])): a
-    finite view that differs from the ones-placeholder view."""
+    finite view, with as many K2 launches, that differs from the
+    ones-placeholder view."""
     import numpy as np
     import torch
     from tcnerf_torch.clip.model import CLIPTextualEncoder
     from tcnerf_torch.clip.tokenizer import tokenize
-    from tcnerf_torch.models import inference
     from tcnerf_torch.params import init_params
 
+    want = 2 * -(-H * W // CHUNK)
     model = build_model(dev, fusion="v0")
     rgb, _, t_first, times, counts = serve_view(model, scene, dev)
     launches["K2 v0"] = counts.get("swg_head_inside", 0)
-    want = 2 * -(-H * W // CHUNK)
     t = float(np.median(times))
     print(f"serve v0 swg render_view {H}x{W}: steady {t * 1e3:.1f} ms "
           f"(median of {[round(x * 1e3, 1) for x in times]}), "
@@ -498,10 +515,7 @@ def phase_serve_clip(dev, card, scene, launches):
     if launches["K2 v0"] != want:
         raise AssertionError(f"the v0 view launched K2 {launches['K2 v0']}"
                              f" times, not {want}")
-    src, src_cfg, tgt_cfg = scene
-    device_time_by_kernel(lambda: inference.render_view(
-        model, [src], [src_cfg], tgt_cfg, device=dev,
-        generator=torch.Generator(device=dev).manual_seed(1)), card, top=10)
+    device_time_by_kernel(view_fn(model, scene, dev), card, top=10)
     check_swg_chunk(model, scene, dev, "v0 swg")
     del model
 
@@ -509,18 +523,18 @@ def phase_serve_clip(dev, card, scene, launches):
                         fusion_activation="elu")
     text_tower = CLIPTextualEncoder().to(dev)
     init_params(text_tower, torch.Generator(device=dev).manual_seed(1))
-    src_t = torch.as_tensor(src[None] / 255.0, dtype=torch.float32,
-                            device=dev)
+    src_t = scene_tensors(scene, dev)[0]
     with torch.inference_mode():
         tokens = torch.as_tensor(tokenize(["a red ball"]), device=dev)
         text = text_tower(tokens)
-        feats, _ = model.combine_features(src_t, clip_textuals=text)
-        placeholder, _ = model.combine_features(src_t)
+        feats, _ = model.combine_features(src_t[0], clip_textuals=text)
+        placeholder, _ = model.combine_features(src_t[0])
     if not (torch.isfinite(text).all() and torch.isfinite(feats).all()):
         raise AssertionError("v4 text embedding or feature image not finite")
     gap = float((feats - placeholder).abs().max())
     rgb_t, _, _, times, counts = serve_view(model, scene, dev, n_views=1,
                                             clip_textuals=text)
+    n_k2 = counts.get("swg_head_inside", 0)
     rgb_1, _, _, _, _ = serve_view(model, scene, dev, n_views=1)
     diff = int((rgb_t != rgb_1).any(-1).sum())
     print(f"serve v4-elu (dense text gate) render_view {H}x{W} with the "
@@ -528,6 +542,9 @@ def phase_serve_clip(dev, card, scene, launches):
           f"{times[0] * 1e3:.1f} ms; features max |text - ones| {gap:.4g}; "
           f"{diff} of {H * W} pixels differ from the placeholder view; "
           f"launches {counts} [{card}]")
+    if n_k2 != want:
+        raise AssertionError(f"the v4-elu view launched K2 {n_k2} times, "
+                             f"not {want}")
     if not gap > 0 or diff == 0:
         raise AssertionError("the text embedding does not change the view")
     del model, text_tower
@@ -536,14 +553,14 @@ def phase_serve_clip(dev, card, scene, launches):
 def phase_serve_3view(dev, card, launches):
     """nerf_3_view (fusion v0), bf16 model, pallas_mlp: render_view on the
     flax path (K1 in both chain halves, the mean view fusion between them)
-    from 3 sources of camera_ring(4) at 480x640, 8192-ray chunks; then the
-    same view's float image through render_all_rays (finite), and K1 timed
-    at the path's four shapes for its x gap."""
+    from 3 sources of camera_ring(4) at 480x640, 8192-ray chunks; then one
+    of the view's chunks through K1 and through the plain chain on the same
+    weights, and K1 against the plain chain and timed at the path's four
+    shapes, for its x gap."""
     import numpy as np
     import torch
     from tcnerf_torch.data.synthetic import camera_ring
-    from tcnerf_torch.models import inference
-    from tcnerf_torch.ops.resmlp import pack_chain, resmlp_rows
+    from tcnerf_torch.ops.resmlp import pack_chain, resmlp_plain, resmlp_rows
     from tcnerf_torch.tools.common import bound_ms, random_chain, time_ms
 
     model = build_model(dev, dtype=torch.bfloat16, pallas_mlp=True,
@@ -563,30 +580,34 @@ def phase_serve_3view(dev, card, launches):
         raise AssertionError(f"the 3-view view launched K1 "
                              f"{launches['K1 3-view']} times, not "
                              f"{4 * n_chunks}")
+
+    # the view's middle chunk with both chain halves on K1, then on the
+    # plain chain (the same weights): the coarse pass at the bf16 serving
+    # bar, the fine pass (its samples follow the coarse weights through the
+    # PDF) at the bf16-prepared chunk bar
+    src_t, k4, ext, pose, k3 = scene_tensors(scene, dev)
+    ro, rd, u_c, u_f = middle_chunk(pose, k3, dev)
+    embeddings = (model.coarse_embedding, model.fine_embedding)
+    outs = []
     with torch.inference_mode():
-        src_t = torch.as_tensor(np.asarray(srcs)[None] / 255.0,
-                                dtype=torch.float32, device=dev)
-        k4 = np.tile(np.eye(4), (3, 1, 1))
-        k4[:, :3, :3] = [np.reshape(c["intrinsics"], (3, 3)) for c in cfgs[:3]]
-        ext = np.asarray([np.linalg.inv(c["pose"]) for c in cfgs[:3]])
-        k4, ext = (torch.as_tensor(a[None], dtype=torch.float32, device=dev)
-                   for a in (k4, ext))
         feats, _ = model.combine_features(src_t[0])
-        rgb, depth = inference.render_all_rays(
-            model, src_t, k4, ext, feats[None],
-            torch.as_tensor(cfgs[3]["pose"], dtype=torch.float32, device=dev),
-            torch.as_tensor(np.reshape(cfgs[3]["intrinsics"], (3, 3)),
-                            dtype=torch.float32, device=dev), H, W, CHUNK,
-            generator=torch.Generator(device=dev).manual_seed(2))
-    if not (torch.isfinite(rgb.float()).all()
-            and torch.isfinite(depth.float()).all()):
-        raise AssertionError("the 3-view view is not finite")
-    print(f"serve 3-view full image: finite, rgb mean "
-          f"{float(rgb.float().mean()):.4f}")
-    del model, feats
+        for use_kernel in (True, False):
+            for e in embeddings:
+                e.use_pallas = use_kernel
+            outs.append(model.render_rays(ro, rd, src_t, k4, ext, feats[None],
+                                          u_coarse=u_c, u_fine=u_f))
+    for name, got, want, i in zip(("rgb", "depth", "fine_rgb", "fine_depth"),
+                                  outs[0], outs[1], range(4)):
+        if i < 2:
+            compare(f"3-view chunk {name} (K1 vs plain chain)", got, want,
+                    2e-2, "bf16 model, the serving bar")
+        else:
+            check_chunk(f"3-view chunk {name} (K1 vs plain chain)", got, want)
+    del model, feats, outs
 
     # K1 at the view's shapes: per chunk and stage, the first chain half on
-    # 3 views' rows, the second on the fused rows (3 blocks each, bf16)
+    # 3 views' rows, the second on the fused rows (3 blocks each, bf16);
+    # each against the plain chain on the same rows, then timed
     gen = torch.Generator(device=dev).manual_seed(8)
     wts = random_chain(gen, 3, None, 0, dev)
     pk = pack_chain(wts, 3, skip_input=True)
@@ -596,6 +617,10 @@ def phase_serve_3view(dev, card, launches):
             n = v * CHUNK * s
             x = torch.randn((n, HID), generator=gen, device=dev
                             ).to(torch.bfloat16)
+            compare(f"K1 resmlp_rows 3-view {stage} {half} half [{n}x{HID}] "
+                    f"bf16", resmlp_rows(x, wts, 3, skip_input=True, pack=pk),
+                    resmlp_plain(x, wts, 3, skip_input=True), 2e-2,
+                    "bf16 output rounding, f32 stream")
             ms = time_ms(lambda: resmlp_rows(x, wts, 3, skip_input=True,
                                              pack=pk), dev, 10)
             b = bound_ms(2 * n * 6 * HID * HID, 2 * n * HID * 2)[0]
