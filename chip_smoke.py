@@ -16,11 +16,19 @@ kernel and that the output is finite, and prints the times. Then it serves
 the CLIP-fused models at full width: `nerf_1_view` (fusion v0) on the swg
 path (K2) with a profiled view split by the port's profiler ranges, a
 v4-elu model gated by the CLIP text tower's embedding of a prompt, and
-the bf16 `nerf_3_view` model on the flax path (K1). Last it trains
-the same model (f32, K1' in the chain halves) for 4 steps through
+the bf16 `nerf_3_view` model on the flax path (K1). Then it trains
+`nerf_1_view_wo` (f32, K1' in the chain halves) for 4 steps through
 `tcnerf_torch.train.train_nerf` on a synthetic dataset, holds K1' against
 its plain version and a step with K1' against one with the plain chain,
-and prints step time, memory and a profiled step. The last line is
+and prints step time, memory and a profiled step; then the CLIP-fused
+trainers (`nerf_1_view`, `nerf_1_view_v4_elu`, `nerf_3_view`: finite
+losses, the frozen CLIP tower untouched, the validation strips decoded, K1'
+launches per step, K2 / K1 launches per validation render, a profiled
+step each). Last it serves grasp poses: `GraspPipeline.infer` on
+`goal_1_view` and on `language_1_view` (4096 guesses, 3 images, 16 ascent
+steps at full width), checked against a fresh energy of the returned poses
+and against the same model on the CPU, with its times, throughput, memory
+and a profiled ascent step. The last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
 Imports torch and the port only.
 """
@@ -718,19 +726,16 @@ TRAIN_CUT = ["dataset.n_perspectives=4", "dataset.n_synthetic_samples=8",
              "valid_perspective_tgt_idx=2", "nerf_model.pallas_mlp=true"]
 
 
-def check_k1_diff(dev, card):
-    """K1' at a training chunk's shapes (128 rays x batch 8 = 1024 rays; 64
-    coarse, 128 fine samples; f32 stream, a 3-block chain half): the forward
-    against the plain chain on the same bf16 weight copies, the backward
-    against autograd through the plain chain (the same code: bit for bit),
-    then the kernel's forward, the plain forward and the backward timed. The
-    forward is timed as a CUDA graph of launches: the kernel is shorter than
-    its wrapper's host work, so events around back-to-back calls read the
-    host's launch rate (printed beside it)."""
+def check_k1_diff_at(dev, shapes, then=None):
+    """K1' (`resmlp_rows_diff`, a 3-block chain half of seeded weights, f32
+    rows) at each (label, rows) of `shapes`: the forward against the plain
+    chain on the same bf16 weight copies (2e-2 x max|ref|), the backward
+    against autograd through the plain chain (the same code: bit for bit).
+    `then(label, rows, err, x, ws, out, g, wb, pack)` runs after each
+    shape's checks, with its inputs, the output and its cotangent."""
     import torch
     from tcnerf_torch.ops.resmlp import (pack_chain, resmlp_plain,
-                                         resmlp_rows, resmlp_rows_diff)
-    from tcnerf_torch.tools.common import bound_ms, graph_ms, time_ms
+                                         resmlp_rows_diff)
 
     gen = torch.Generator(device=dev).manual_seed(6)
     w = []
@@ -739,15 +744,13 @@ def check_k1_diff(dev, card):
               torch.randn((HID,), generator=gen, device=dev) * 0.1]
     wb = [t.to(torch.bfloat16) for t in w]
     pack = pack_chain(w, 3, skip_input=True)
-    res = {}
-    for stage, n in (("coarse", 1024 * N_SAMPLES), ("fine", 2048 * N_SAMPLES)):
+    for label, n in shapes:
         x = torch.randn((n, HID), generator=gen, device=dev).requires_grad_()
         ws = [t.clone().requires_grad_() for t in w]
         out = resmlp_rows_diff(x, ws, 3, skip_input=True, pack=pack)
-        err = compare(f"K1' resmlp_rows_diff forward, {stage} chunk "
-                      f"[{n}x128] f32", out,
-                      resmlp_plain(x.detach(), wb, 3, skip_input=True), 2e-2,
-                      "plain chain on the same bf16 weight copies")
+        err = compare(f"K1' resmlp_rows_diff forward, {label} [{n}x128] f32",
+                      out, resmlp_plain(x.detach(), wb, 3, skip_input=True),
+                      2e-2, "plain chain on the same bf16 weight copies")
         g = torch.randn(out.shape, generator=gen, device=dev)
         got = torch.autograd.grad(out, [x, *ws], g, retain_graph=True)
         xr = x.detach().requires_grad_()
@@ -755,17 +758,36 @@ def check_k1_diff(dev, card):
         want = torch.autograd.grad(resmlp_plain(xr, wr, 3, skip_input=True),
                                    [xr, *wr], g)
         same = all(torch.equal(a, b) for a, b in zip(got, want))
-        print(f"check K1' resmlp_rows_diff backward, {stage} chunk: dx and "
-              f"{len(ws)} weight grads vs autograd through the plain chain: "
-              f"{'bit-exact OK' if same else 'FAIL'}")
+        print(f"check K1' resmlp_rows_diff backward, {label} [{n}x128]: dx "
+              f"and {len(ws)} weight grads vs autograd through the plain "
+              f"chain: {'bit-exact OK' if same else 'FAIL'}")
         if not same:
-            raise AssertionError("K1' backward differs from the plain grads")
+            raise AssertionError(f"K1' backward differs at {label}")
+        if then is not None:
+            then(label, n, err, x, ws, out, g, wb, pack)
+        del x, ws, out, got, want
+
+
+def check_k1_diff(dev, card):
+    """K1' at a training chunk's shapes (128 rays x batch 8 = 1024 rays; 64
+    coarse, 128 fine samples; f32 stream, a 3-block chain half), checked by
+    `check_k1_diff_at`, then the kernel's forward, the plain forward and
+    the backward timed. The forward is timed as a CUDA graph of launches:
+    the kernel is shorter than its wrapper's host work, so events around
+    back-to-back calls read the host's launch rate (printed beside it)."""
+    import torch
+    from tcnerf_torch.ops.resmlp import resmlp_plain, resmlp_rows
+    from tcnerf_torch.tools.common import bound_ms, graph_ms, time_ms
+
+    res = {}
+
+    def timing(label, n, err, x, ws, out, g, wb, pack):
         xd = x.detach()
 
         def kernel():
             return resmlp_rows(xd, wb, 3, skip_input=True, pack=pack)
 
-        res[stage] = dict(
+        r = res[label.split()[0]] = dict(
             err=err, n=n, ms=graph_ms(kernel, dev),
             paced_ms=time_ms(kernel, dev, 10),
             plain_ms=graph_ms(lambda: resmlp_plain(xd, wb, 3, skip_input=True),
@@ -773,14 +795,15 @@ def check_k1_diff(dev, card):
             backward_ms=time_ms(lambda: torch.autograd.grad(
                 out, [x, *ws], g, retain_graph=True), dev, 5),
             bound=bound_ms(2 * n * 6 * HID * HID, 2 * n * HID * 4))
-        r = res[stage]
-        print(f"time K1' {stage} chunk [{n}x128]: forward (K1, CUDA graph of "
+        print(f"time K1' {label} [{n}x128]: forward (K1, CUDA graph of "
               f"20 launches) {r['ms']:.4f} ms (launch-paced, CUDA events "
               f"around back-to-back calls: {r['paced_ms']:.4f} ms), backward "
               f"(plain recompute + grads, CUDA events) {r['backward_ms']:.4f}"
               f" ms (plain forward, CUDA graph {r['plain_ms']:.4f} ms, forward "
               f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]}) [{card}]")
-        del x, xd, ws, out, got, want
+
+    check_k1_diff_at(dev, [("coarse chunk", 1024 * N_SAMPLES),
+                           ("fine chunk", 2048 * N_SAMPLES)], timing)
     fine = res["fine"]
     return dict(err=max(r["err"] for r in res.values()), ms=fine["ms"],
                 coarse_ms=res["coarse"]["ms"], plain_ms=fine["plain_ms"],
@@ -964,7 +987,8 @@ def phase_train(dev, card, launches):
 
     kres = check_k1_diff(dev, card)
     data_dir = REPO / "build" / "chip_smoke_train"
-    cfg = config.load_config([f"data_dir={data_dir}", *TRAIN_CUT])
+    cfg = config.load_config([f"data_dir={data_dir}", *TRAIN_CUT],
+                             "nerf_1_view_wo")
     print(f"train: nerf_1_view_wo at full width (ViT-B/16 224^2, n_features "
           f"256, hidden 128, 6 blocks, 64+64 samples, 512 rays x batch 8, "
           f"480x640 sources), f32, seeded random weights; cut: {TRAIN_CUT}")
@@ -979,10 +1003,12 @@ def phase_train(dev, card, launches):
           f"validation renders in {wall:.1f} s (dataset synthesis included); "
           f"launches {dict(counts)}; peak memory allocated "
           f"{peak / 2 ** 30:.2f} GiB [{card}]")
-    for s in steps:
+    plain_data = plain_batch_seconds(cfg, dev, len(steps))
+    for s, plain_s in zip(steps, plain_data):
         print(f"train step {s['step']}: loss {s['loss']:.6f}, "
-              f"{s['step_s'] * 1e3:.1f} ms (batch synthesis "
-              f"{s['data_s'] * 1e3:.1f} ms) [{card}]")
+              f"{s['step_s'] * 1e3:.1f} ms (waiting for the prefetched "
+              f"batch {s['data_s'] * 1e3:.1f} ms; the same batch synthesized"
+              f" and copied without prefetch {plain_s * 1e3:.1f} ms) [{card}]")
     if not all(np.isfinite(s["loss"]) for s in steps) or len(steps) != 4:
         raise AssertionError("train losses not finite (or not 4 steps)")
     if launches["K1'"] == 0:
@@ -1035,13 +1061,504 @@ def phase_train(dev, card, launches):
           f"steady step [{card}]")
     del g_out
     plain_cfg = config.load_config([f"data_dir={data_dir}", *TRAIN_CUT,
-                                    "nerf_model.pallas_mlp=false"])
+                                    "nerf_model.pallas_mlp=false"],
+                                   "nerf_1_view_wo")
     plain = train_nerf.build_model(plain_cfg, dev)
     plain.load_state_dict(model.state_dict())
     controls = bf16_controls(model,
                              lambda: train_nerf.build_model(plain_cfg, dev))
     compare_train_paths(model, plain, controls, batch, draws)
     return {"K1'": kres}
+
+
+def plain_batch_seconds(cfg, dev, n):
+    """Host seconds of the trainer's first `n` batches without the prefetch
+    thread: synthesis, then the pinned copy to the card, waited for (a
+    generator of the trainer's seed on its training set)."""
+    import torch
+    from tcnerf_torch.data.generators import MVNeRFDataGenerator, to_device
+    from tcnerf_torch.data.loaders import load_dataset_nerf
+
+    nm = cfg.nerf_model
+    gen = MVNeRFDataGenerator(
+        load_dataset_nerf(cfg.dataset.n_perspectives,
+                          f"{cfg.dataset.path}/train"),
+        n_rays_train=nm.n_rays_train, batch_size=cfg.nerf_training.batch_size,
+        n_views=nm.n_views, shuffle=True, rng=cfg.get("seed", 0))
+    out = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        to_device(*gen[i % len(gen)], dev)
+        torch.cuda.synchronize(dev)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def read_png(path):
+    """An 8-bit RGB PNG written without filters (train_nerf.write_png) as
+    an [H, W, 3] uint8 array, with the stdlib: the chunk CRCs checked."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in {kind!r}")
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if (depth, color) != (8, 2):
+        raise AssertionError(f"{path}: not 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = rows.reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: filtered rows")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+# K1' at the fused trainers' shapes (64 coarse, 128 fine samples a ray): the
+# batch-1 steps' unchunked 512 rays; the 3-view step's 128-ray chunks of
+# batch 8, whose first chain half runs on 3 views' rows; the 3-view
+# validation render's 512-ray chunks (forward only there, f32 rows: K1).
+FUSED_K1_SHAPES = [("1-view batch-1 step coarse", 512 * 64),
+                   ("1-view batch-1 step fine", 512 * 128),
+                   ("3-view step first half coarse", 1024 * 64 * 3),
+                   ("3-view step first half fine", 1024 * 128 * 3),
+                   ("3-view validation first half coarse", 512 * 64 * 3)]
+
+
+# The fused stage-1 configs at full width, each on a synthetic dataset of
+# 480x640 renders with 4 perspectives: the batch-1 configs on 4 scenes (4
+# steps in one epoch), nerf_3_view (batch 8) on phase_train's 8 scenes (3
+# epochs of 1 step); the chain halves on K1' (pallas_mlp).
+FUSED_TRAIN = [
+    ("nerf_1_view", ["dataset.path=${data_dir}/fused1",
+                     "dataset.n_synthetic_samples=4",
+                     "nerf_training.n_epochs=1",
+                     "nerf_training.eval_after_epochs=1",
+                     "valid_perspective_src_indices=[0]"]),
+    ("nerf_1_view_v4_elu", ["dataset.path=${data_dir}/fused1",
+                            "dataset.n_synthetic_samples=4",
+                            "nerf_training.n_epochs=1",
+                            "nerf_training.eval_after_epochs=1",
+                            "valid_perspective_src_indices=[0]"]),
+    ("nerf_3_view", ["dataset.n_synthetic_samples=8",
+                     "nerf_training.n_epochs=3",
+                     "nerf_training.eval_after_epochs=3",
+                     "valid_perspective_src_indices=[0,1,3]"]),
+]
+FUSED_COMMON = ["dataset.n_perspectives=4", "valid_sample_idx=0",
+                "valid_perspective_tgt_idx=2", "nerf_model.pallas_mlp=true"]
+
+
+def phase_train_fused(dev, card, launches):
+    """K1' at the fused paths' shapes (FUSED_K1_SHAPES), then
+    `train_nerf._main` on each FUSED_TRAIN config at full width (f32,
+    pallas_mlp + remat, 4-tap gather, the frozen CLIP RN50 tower, V0 or
+    the v4-elu decoder), the counts set to 0 before each run and read
+    after: finite losses, the frozen tower's weights unchanged, the
+    validation strips decode. Then per config one instrumented step (K1'
+    launches), one instrumented validation render (K2 on 1 view, K1 on 3
+    views) and one profiled step."""
+    import numpy as np
+    import torch
+    from tcnerf_torch.data.generators import MVNeRFDataGenerator, to_device
+    from tcnerf_torch.data.loaders import load_dataset_nerf
+    from tcnerf_torch.models import training as T
+    from tcnerf_torch.train import config, train_nerf
+
+    check_k1_diff_at(dev, FUSED_K1_SHAPES)
+    data_dir = REPO / "build" / "chip_smoke_train"
+    for name, cut in FUSED_TRAIN:
+        cfg = config.load_config([f"data_dir={data_dir}", *FUSED_COMMON,
+                                  *cut], name)
+        nm, nt = cfg.nerf_model, cfg.nerf_training
+        print(f"train {name}: fusion {nt.fusion}, {nm.n_views} view(s), "
+              f"batch {nt.batch_size} x {nm.n_rays_train} rays, full width "
+              f"(ViT-B/16, CLIP RN50, n_features 256, hidden 128, 6 blocks, "
+              f"480x640), f32, seeded random weights; cut: "
+              f"{FUSED_COMMON + cut}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        (state, history), wall = timed(lambda: train_nerf._main(cfg, dev))
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        tag = name.replace("nerf_", "")
+        launches[f"K1' train_{tag}"] = counts.get("resmlp_rows_diff", 0)
+        steps = history["steps"]
+        print(f"train {name} run: {len(steps)} steps + "
+              f"{len(history['valid'])} validation renders in {wall:.1f} s "
+              f"(dataset synthesis included); launches {dict(counts)}; peak "
+              f"memory allocated {peak / 2 ** 30:.2f} GiB [{card}]")
+        for s in steps:
+            print(f"train {name} step {s['step']}: loss {s['loss']:.6f}, "
+                  f"{s['step_s'] * 1e3:.1f} ms (waiting for the prefetched "
+                  f"batch {s['data_s'] * 1e3:.1f} ms) [{card}]")
+        if len(steps) < 2 or not all(np.isfinite(s["loss"]) for s in steps):
+            raise AssertionError(f"{name}: losses not finite (or < 2 steps)")
+        if launches[f"K1' train_{tag}"] == 0:
+            raise AssertionError(f"{name}: training did not launch K1'")
+        steady = float(np.median([s["step_s"] for s in steps[1:]]))
+        rays = nt.batch_size * nm.n_rays_train
+        print(f"train {name} steady step (median of steps 2-{len(steps)}): "
+              f"{steady * 1e3:.1f} ms, {rays / steady:.0f} rays/s [{card}]")
+        for epoch, value in history["valid"]:
+            strip = read_png(Path(nt.model_path) / "valid"
+                             / f"valid-{epoch}.png")
+            print(f"train {name} validation after epoch {epoch}: PSNR "
+                  f"{value:.3f} dB, strip {strip.shape} decoded")
+            if strip.shape != (H, (nm.n_views + 3) * W, 3):
+                raise AssertionError(f"{name}: strip shape {strip.shape}")
+            if not np.isfinite(value):
+                raise AssertionError(f"{name}: validation PSNR not finite")
+
+        model = state.model
+        fresh = train_nerf.build_model(cfg, dev)
+        same = all(torch.equal(p, q) for (n, p), (_, q) in zip(
+            model.named_parameters(), fresh.named_parameters())
+            if T.param_group(n) == "frozen")
+        moved = any(not torch.equal(p, q) for (n, p), (_, q) in zip(
+            model.named_parameters(), fresh.named_parameters())
+            if T.param_group(n) == "nerf")
+        n_frozen = sum(T.param_group(n) == "frozen"
+                       for n, _ in model.named_parameters())
+        no_grad = all(p.grad is None for n, p in model.named_parameters()
+                      if T.param_group(n) == "frozen")
+        print(f"check train {name} frozen CLIP tower: {n_frozen} tensors "
+              f"bit-identical to the seeded ones after {len(steps)} steps and"
+              f" without gradients; the nerf group moved: "
+              f"{'OK' if same and moved and no_grad else 'FAIL'}")
+        if not (same and moved and no_grad and n_frozen):
+            raise AssertionError(f"{name}: frozen tower changed or got "
+                                 "gradients, or the nerf group did not train")
+        del fresh
+
+        ds = load_dataset_nerf(cfg.dataset.n_perspectives,
+                               f"{cfg.dataset.path}/train")
+        batch = to_device(*MVNeRFDataGenerator(
+            ds, n_rays_train=nm.n_rays_train, batch_size=nt.batch_size,
+            n_views=nm.n_views, rng=1)[0], dev)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        reset_counts()
+        T.nerf_train_step(state, *batch, gen)
+        torch.cuda.synchronize(dev)
+        per_step = read_counts().get("resmlp_rows_diff", 0)
+        valid = train_nerf.load_validation(cfg, load_dataset_nerf(
+            cfg.dataset.n_perspectives, f"{cfg.dataset.path}/valid"))
+        reset_counts()
+        _, t_valid = timed(lambda: train_nerf.run_validation(
+            model, valid, dev, gen, str(data_dir / f"valid-{tag}.png")))
+        per_render = read_counts()
+        print(f"train {name} launches: K1' {per_step} per step (forward + "
+              f"the backward's recompute); one validation render "
+              f"{t_valid * 1e3:.1f} ms with {dict(per_render)} [{card}]")
+        if nm.n_views == 1:
+            launches[f"K2 valid_render_{tag}"] = per_render.get(
+                "swg_head_inside", 0)
+        else:
+            launches[f"K1 valid_render_{tag}"] = per_render.get(
+                "resmlp_rows", 0)
+        if not (per_render.get("swg_head_inside", 0)
+                or per_render.get("resmlp_rows", 0)):
+            raise AssertionError(f"{name}: the validation render launched "
+                                 "no kernel")
+        device_time_by_kernel(lambda: T.nerf_train_step(state, *batch, gen),
+                              card, top=8)
+        del state, model, batch, history
+
+
+def grasp_scene(n_images, seed):
+    """`n_images` 480x640 views from a camera_ring around the workspace's
+    centre, seeded random images: (images [1, n, H, W, 3] in [0, 1],
+    intrinsics [1, n, 4, 4], inverse extrinsics)."""
+    import numpy as np
+    from tcnerf_torch.data.synthetic import camera_ring
+
+    cfgs = camera_ring(n_images, height=H, width=W)
+    k4 = np.tile(np.eye(4, dtype=np.float32), (n_images, 1, 1))
+    k4[:, :3, :3] = [c["intrinsics"].reshape(3, 3) for c in cfgs]
+    ext = np.asarray([np.linalg.inv(c["pose"]) for c in cfgs], np.float32)
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(size=(1, n_images, H, W, 3)).astype(np.float32)
+    return images, k4[None], ext[None]
+
+
+def relu_sides(n, take=None):
+    """A torch-function mode that records, for each relu of the calls
+    under it, which side of 0 each input entry lies on (`.sides`, bool
+    tensors on the CPU in the input's layout). Every relu input on the
+    grasp energy's path is [batch, n guesses, ...]. With `take`, the sides
+    recorded by an earlier run of the same calls, each relu takes those
+    branches instead of its own: x where that run's input was > 0, else 0
+    (and the gradient follows)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    relus = (torch.relu, torch.nn.functional.relu, torch.Tensor.relu)
+
+    class Sides(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.sides = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func not in relus:
+                return func(*args, **(kwargs or {}))
+            x = args[0]
+            if x.dim() < 2 or x.shape[1] != n:
+                raise AssertionError(f"a relu input of shape "
+                                     f"{tuple(x.shape)}: no guess axis")
+            self.sides.append((x.detach() > 0).cpu())
+            if take is None:
+                return func(*args, **(kwargs or {}))
+            side = take[len(self.sides) - 1]
+            if side.shape != x.shape:
+                raise AssertionError("the relus ran in another order")
+            return torch.where(side.to(x.device), x, torch.zeros_like(x))
+
+    return Sides()
+
+
+def per_guess(sides, n):
+    """relu sides [batch, n, ...] -> [n, all entries of all relus]."""
+    import torch
+    return torch.cat([x.transpose(0, 1).reshape(n, -1) for x in sides], 1)
+
+
+def grasp_energy_grads(model, opt, scene, features, guesses, take=None):
+    """Energies and d(sum E)/d(t, r) of `guesses` with `model` (on its
+    device and dtype) in the folded scene, and the branches the gradient
+    took, as CPU tensors: each probe's bilinear cell in each image [n, ...]
+    (per pixel axis the stencil's clamped floor, or -1 / size outside the
+    grid, where the clamp cuts the derivative) and the side of 0 of every
+    relu input (`relu_sides`; with `take`, the relus take those sides).
+    The gradient jumps where a branch changes."""
+    import torch
+    from tcnerf_torch.core import se3
+    from tcnerf_torch.core.projection import project_probe_points
+    from tcnerf_torch.opt.pose_optimizer import PoseOptimizer, frozen
+
+    o = PoseOptimizer(model=model, workspace_bounds=opt.workspace_bounds,
+                      n_images=opt.n_images, n_views=opt.n_views,
+                      rotation_representation=opt.rotation_representation)
+    sc = o.prepare(scene, features.to(device=o.device, dtype=o.dtype))
+    st = o.init_state(guesses)
+    t = st.translations.requires_grad_()
+    r = st.rotations.requires_grad_()
+    n = t.shape[1]
+    with frozen(model):
+        with relu_sides(n, take) as sides:
+            e = o._energies(t, r, sc)
+        g = torch.autograd.grad(e.sum(), [t, r])
+    with torch.no_grad():             # the coordinates energy_prepared uses
+        b = o.batch_size
+        poses = se3.pose_to_matrix(t.expand(b, -1, -1), r.expand(b, -1, -1),
+                                   o.rotation_representation)
+        probes = torch.einsum("bnij,pjk->bnpik", poses,
+                              model.probes.to(poses.dtype))
+        xy, _ = project_probe_points(probes[..., :3, 3], sc.intrinsics,
+                                     sc.extrinsics_inv)
+        image = (sc.prepared.corner if sc.prepared.corner is not None
+                 else sc.prepared.combined)
+        size = torch.tensor(image.shape[2:0:-1], device=xy.device,
+                            dtype=xy.dtype)              # (W, H)
+        cell = torch.clamp(torch.floor(xy), max=size - 2)
+        cell = torch.where(xy < 0, -1.0, torch.where(xy > size - 1, size,
+                                                     cell))
+        cell = cell.reshape(-1, n, model.n_probes, 2).transpose(0, 1)
+    return dict(e=e.detach().cpu(), dt=g[0][0].cpu(), dr=g[1][0].cpu(),
+                cells=cell.reshape(n, -1).cpu(), sides=sides.sides)
+
+
+def check_grasp_on_cpu(opt, scene, features, tag, n=64):
+    """`n` seeded guesses on the card against the same model on the CPU,
+    from the card's features, each error against max |cpu|.
+
+    The f32 energies within 1e-3. The f32 d(sum E)/d(t, r) within 1e-3,
+    against the CPU run made to take the card's relu branches, for every
+    guess whose probes fall in the same bilinear cells on both (at most
+    n / 4 do not): the gradient jumps where a branch changes, and the two
+    devices' f32 roundings can put an entry on either side. Against the
+    CPU's own branches, the median error of all entries within 1e-4, and
+    the entries beyond 1e-3 are counted with the guesses whose branches
+    differ. Then energies and gradients of f64 copies of both models
+    within 1e-3."""
+    import copy
+
+    import torch
+
+    model = opt.model
+    guesses = opt.generate_initial_guesses(5, n)
+    cpu = copy.deepcopy(model).cpu()
+    got = grasp_energy_grads(model, opt, scene, features, guesses)
+    own = grasp_energy_grads(cpu, opt, scene, features, guesses)
+    want = grasp_energy_grads(cpu, opt, scene, features, guesses,
+                              take=got["sides"])
+    compare(f"grasp {tag} f32 energies of {n} guesses, card vs CPU",
+            got["e"], own["e"], 1e-3, "the same model and features on the "
+            "CPU")
+    cells = (got["cells"] != own["cells"]).any(dim=1)            # [n]
+    flips = per_guess(got["sides"], n) != per_guess(own["sides"], n)
+    relus = flips.any(dim=1)
+    k = int(cells.sum())
+    print(f"grasp {tag} f32 branches of {n} guesses, card vs CPU: {k} "
+          f"guesses with a probe in another bilinear cell (limit {n // 4}); "
+          f"{int(relus.sum())} with a relu input on the other side of 0 "
+          f"({int(flips.sum())} of {flips.numel()} relu inputs)")
+    for what in ("dt", "dr"):
+        g, w, o = got[what], want[what], own[what]
+        scale = float(o.abs().max())
+        held = float((g - w).abs()[~cells].max()) if k < n else 0.0
+        err = (g - o).abs()
+        beyond = (err > 1e-3 * scale).any(dim=1)
+        median = float(err.median()) / scale
+        ok = k <= n // 4 and held <= 1e-3 * scale and median <= 1e-4
+        print(f"check grasp {tag} f32 dE/d{what[1]} of {n} guesses, card vs "
+              f"CPU: the {n - k} guesses in the same cells, the CPU on the "
+              f"card's relu branches: max_abs_err={held:.6g} limit="
+              f"{1e-3 * scale:.6g} (1e-3 x max|ref| {scale:.6g}); the CPU on"
+              f" its own branches: max err {float(err.max()):.6g}, "
+              f"{int(beyond.sum())} guesses beyond 1e-3 x max|ref|, "
+              f"{int((beyond & (relus | cells)).sum())} of them with a "
+              f"branch changed, median err {median:.3g} x max|ref| (limit "
+              f"1e-4) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"grasp {tag} f32 dE/d{what[1]}: card and "
+                                 "CPU disagree")
+    del cpu
+    runs = [grasp_energy_grads(m, opt, scene, features, guesses)
+            for m in (copy.deepcopy(model).double(),
+                      copy.deepcopy(model).cpu().double())]
+    for what, label in (("e", "energies"), ("dt", "dE/dt"), ("dr", "dE/dr")):
+        compare(f"grasp {tag} f64 {label} of {n} guesses, card vs CPU",
+                runs[0][what], runs[1][what], 1e-3,
+                "f64 copies of the model, the card's features")
+    torch.cuda.empty_cache()
+
+
+def phase_grasp(dev, card, name="goal_1_view", text=None, fusion=None,
+                sync=True):
+    """`GraspPipeline.infer` on `name` at full width (ViT-B/16 224^2,
+    n_features 256, hidden 128, 6 blocks, 480x640; 7 5-d poses = 42
+    probes; the language config adds the CLIP RN50 and text towers and the
+    v4-elu decoder): 4096 guesses, 3 images from a camera ring, the
+    validation/grasp_opt_config/3_images schedule (16 steps, lr 0.05 /
+    0.05, decay 0.9 / 0.09, translations clipped to the
+    generator_grasp/default workspace), synchronized or alternating.
+    Checks: finite energies; the returned top-k scores equal a fresh
+    `energy` of the returned poses; 64 guesses' energies and pose
+    gradients on the card against the CPU. Prints the encode ms, the ms
+    per ascent step, the infer wall, guesses x steps / s, the peak memory
+    and one profiled ascent step."""
+    import numpy as np
+    import torch
+    from tcnerf_torch.models.pipeline import GraspPipeline
+    from tcnerf_torch.tools.common import time_ms
+    from tcnerf_torch.train import config
+    from tcnerf_torch.train.grasp_common import build_grasp_model
+
+    cfg = config.load_config([], name)
+    oc = cfg.validation.grasp_opt_config
+    opt_cfg, sched = oc.optimizer_config, oc.optimization_config
+    rep = cfg.grasp_model.get("rotation_representation", "quaternion")
+    model = build_grasp_model(cfg, fusion=fusion, device=dev)
+    workspace = cfg.generator_grasp.workspace_bounds
+    pipe = GraspPipeline(
+        model=model, params=None, workspace_bounds=workspace,
+        n_initial_guesses=opt_cfg.n_initial_guesses,
+        n_images=opt_cfg.n_images, rotation_representation=rep,
+        clip_translation=opt_cfg.clip_translation,
+        n_optimization_steps=sched.n_optimization_steps,
+        init_lr_t=sched.init_lr_t, init_lr_r=sched.init_lr_r,
+        decay_t=sched.decay_t, decay_r=sched.decay_r, sync=sync)
+    scene = grasp_scene(opt_cfg.n_images, seed=2)
+    n, steps = opt_cfg.n_initial_guesses, sched.n_optimization_steps
+    n_steps = steps * (1 if sync else 2)
+    print(f"grasp {name}: {n} guesses x {n_steps} steps "
+          f"({'synchronized' if sync else 'alternating t / r'}), "
+          f"{opt_cfg.n_images} images, {model.n_probes} probes, {rep}, "
+          f"readout {'goal' if fusion is None else 'dngf'} flavour"
+          + (f", prompt {text!r}" if text else "") + "; seeded weights")
+    _, t_first = timed(lambda: pipe.infer(*scene, text=text, rng=0))
+    torch.cuda.reset_peak_memory_stats(dev)
+    result, t_infer = timed(lambda: pipe.infer(*scene, text=text, rng=0))
+    peak = torch.cuda.max_memory_allocated(dev)
+    energies = result.all_energies
+    if energies.shape != (n,) or not np.isfinite(energies).all():
+        raise AssertionError(f"grasp {name}: energies {energies.shape} not "
+                             "finite")
+    enc_ms = time_ms(lambda: pipe.encode(scene[0], text), dev, 3)
+    opt = pipe._ensure_optimizer()
+    features = pipe.encode(scene[0], text)
+    sc, t_prepare = timed(lambda: opt.prepare(scene, features))
+    guesses, t_guess = timed(lambda: opt.generate_initial_guesses(0))
+    state = opt.init_state(guesses)
+    _, t_results = timed(lambda: opt.get_results(state))
+    # the schedule infer runs: one phase of t and r, or a t phase then an
+    # r phase
+    phases = [(True, True)] if sync else [(True, False), (False, True)]
+    names = {(True, True): "t and r", (True, False): "t only",
+             (False, True): "r only"}
+    step_ms = {names[ph]: time_ms(
+        lambda ph=ph: opt.optimize_pose(state, sc, ph, 1), dev, 5)
+        for ph in phases}
+    ascent_ms = time_ms(lambda: [opt.optimize_pose(state, sc, ph, steps)
+                                 for ph in phases], dev, 1)
+    print(f"grasp {name} infer: {t_infer * 1e3:.1f} ms wall (first call "
+          f"{t_first * 1e3:.1f} ms; the pipeline's own duration "
+          f"{result.duration_s * 1e3:.1f} ms); encode {enc_ms:.1f} ms; one "
+          f"ascent step " + ", ".join(f"({k}) {v:.2f} ms"
+                                      for k, v in step_ms.items())
+          + f" (CUDA events, {n} guesses x "
+          f"{opt_cfg.n_images} images x {model.n_probes} probes = "
+          f"{n * opt_cfg.n_images * model.n_probes} probe rows); "
+          f"{n_steps} steps as infer runs them {ascent_ms:.1f} ms = "
+          f"{n * n_steps / (ascent_ms / 1e3):.0f} guesses x steps / s; peak "
+          f"memory allocated {peak / 2 ** 30:.2f} GiB; top scores "
+          f"{[round(x, 4) for x in result.scores]} [{card}]")
+    print(f"grasp {name} infer parts: prepare the scene (corner image) "
+          f"{t_prepare * 1e3:.1f} ms, {n} initial guesses on the host "
+          f"(Affine.random, numpy + scipy) {t_guess * 1e3:.1f} ms, "
+          f"get_results ({n} Affine) {t_results * 1e3:.1f} ms [{card}]")
+
+    # the returned top-k scores against a fresh energy of the returned poses
+    def fold(x):
+        x = torch.as_tensor(x, device=dev)
+        return x.reshape((opt.batch_size, opt.n_views) + tuple(x.shape[2:]))
+
+    poses = torch.as_tensor(np.asarray([p.matrix for p in result.poses],
+                                       np.float32), device=dev)
+    with torch.no_grad():
+        fresh = model.energy(poses[None].expand(opt.batch_size, -1, -1, -1),
+                             fold(scene[0]), sc.intrinsics, sc.extrinsics_inv,
+                             fold(features)).sum(0)
+    compare(f"grasp {name} top-{len(result.scores)} scores vs a fresh energy"
+            f" of the returned poses", torch.tensor(result.scores),
+            fresh.cpu(), 1e-4, "the same model, poses through Affine")
+    check_grasp_on_cpu(opt, scene, features, name)
+    for ph in phases:
+        print(f"grasp {name} profiled ascent step ({names[ph]}):")
+        device_time_by_kernel(lambda: opt.optimize_pose(state, sc, ph, 1),
+                              card, top=8)
+    del pipe, model, opt, sc, features
+    return dict(infer_ms=t_infer * 1e3, step_ms=step_ms, encode_ms=enc_ms)
+
+
+def phase_grasp_language(dev, card):
+    """phase_grasp on language_1_view: fusion v4 (dense text gate, elu),
+    6d rotations, the dngf readout with bias, the prompt through the port's
+    tokenizer and the CLIP text tower, alternating t / r phases."""
+    return phase_grasp(dev, card, "language_1_view",
+                       text="grasp the red ball", fusion="v4", sync=False)
 
 
 KERNELS = {
@@ -1101,6 +1618,9 @@ def main(argv) -> int:
     # after the serving phases, which thus run as they did before it existed
     kres.update(phase_gather(dev, card, launches))
     kres.update(phase_train(dev, card, launches))
+    phase_train_fused(dev, card, launches)
+    phase_grasp(dev, card)
+    phase_grasp_language(dev, card)
     rows = []
     for k, r in kres.items():          # K1-K3, then K4-K13 from the tools
         meta = KERNELS.get(k, r)
@@ -1110,9 +1630,12 @@ def main(argv) -> int:
                      "max_abs_err": r["err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],
-                     # the same kernel's launches on the CLIP-fused views
-                     **{f"launches_{tag}": launches[f"{k} {tag}"]
-                        for tag in ("v0", "3-view") if f"{k} {tag}" in launches},
+                     # the same kernel's launches on the other paths: the
+                     # CLIP-fused views, the fused trainers, their
+                     # validation renders
+                     **{f"launches_{key.split(' ', 1)[1]}": n
+                        for key, n in launches.items()
+                        if key.startswith(f"{k} ")},
                      # no single PyTorch call computes K1-K3's fused chain
                      "library_ms": r.get("library_ms"),
                      **{key: r[key] for key in ("coarse_ms", "backward_ms",

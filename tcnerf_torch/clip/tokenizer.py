@@ -15,13 +15,14 @@ does with the `regex` package (case-insensitive), without depending on it:
 `_split` scans the text with `unicodedata` categories, whitespace is the
 Unicode White_Space set (`regex`'s `\\s`), and the contractions match
 case-insensitively as `regex` folds them (U+017F, the long s, is an 's').
-Letters and digits are the categories of Python's `unicodedata`;
-characters assigned after its Unicode version classify as unassigned
-(other) here.
+Letters and digits are the categories of Python's `unicodedata`, plus the
+letters and numbers `regex` knows from later Unicode versions, carried as a
+table of code-point ranges (`unicode_ln.py`).
 """
 
 from __future__ import annotations
 
+import bisect
 import functools
 import gzip
 import html
@@ -31,6 +32,8 @@ import warnings
 from typing import List, Optional, Union
 
 import numpy as np
+
+from .unicode_ln import EXTRA_LETTERS, EXTRA_NUMBERS
 
 VOCAB_SIZE = 49408
 SOT_TOKEN = 49406
@@ -88,12 +91,26 @@ def basic_clean(text: str) -> str:
     return html.unescape(html.unescape(text))
 
 
+def _in_ranges(code: int, ranges) -> bool:
+    i = bisect.bisect_right(ranges, (code, 0x10FFFF)) - 1
+    return i >= 0 and ranges[i][0] <= code <= ranges[i][1]
+
+
 def _kind(ch: str) -> str:
-    """'L' letter, 'N' number, ' ' whitespace, 'O' anything else."""
+    """'L' letter, 'N' number, ' ' whitespace, 'O' anything else: the
+    `unicodedata` category, and `regex`'s newer letters and numbers from
+    unicode_ln.py."""
     if ch in _WHITESPACE:
         return " "
     cat = unicodedata.category(ch)[0]
-    return cat if cat in "LN" else "O"
+    if cat in "LN":
+        return cat
+    code = ord(ch)
+    if _in_ranges(code, EXTRA_LETTERS):
+        return "L"
+    if _in_ranges(code, EXTRA_NUMBERS):
+        return "N"
+    return "O"
 
 
 def _literal_at(text: str, i: int) -> int:

@@ -31,3 +31,27 @@ def world_to_camera_directions_mv(world_dirs: torch.Tensor,
     dh = torch.cat([world_dirs, torch.ones_like(world_dirs[..., :1])], -1)
     cam = torch.einsum("bvij,brj->bvri", src_extrinsics_inv, dh)
     return cam[..., :3]
+
+
+def project_probe_points(points: torch.Tensor, src_intrinsics: torch.Tensor,
+                         src_extrinsics_inv: torch.Tensor):
+    """Grasp-probe translations [B, N, P, 3] into each view.
+
+    Returns (pixel_xy [B, V, N, P, 2], camera_points [B, V, N, P, 3])."""
+    ph = torch.cat([points, torch.ones_like(points[..., :1])], -1)
+    cam = torch.einsum("bvij,bnpj->bvnpi", src_extrinsics_inv, ph)
+    proj = torch.einsum("bvij,bvnpj->bvnpi", src_intrinsics, cam)
+    pixel_xy = proj[..., :2] / torch.clamp(proj[..., 2:3], min=Z_EPS)
+    pixel_xy = torch.clamp(pixel_xy, -PIXEL_CLIP, PIXEL_CLIP)
+    return pixel_xy, cam[..., :3]
+
+
+def rotate_directions(rotations: torch.Tensor, direction: torch.Tensor,
+                      src_extrinsics_inv: torch.Tensor) -> torch.Tensor:
+    """Probe axis directions into camera frames, with the reference's w=1
+    quirk. rotations [B, N, P, 3, 3]; direction [3]; extrinsics_inv
+    [B, V, 4, 4] -> [B, V, N, P, 3]."""
+    d = torch.einsum("bnpij,j->bnpi", rotations, direction)
+    dh = torch.cat([d, torch.ones_like(d[..., :1])], -1)
+    cam = torch.einsum("bvij,bnpj->bvnpi", src_extrinsics_inv, dh)
+    return cam[..., :3]

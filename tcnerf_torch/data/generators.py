@@ -52,6 +52,12 @@ class DataGenerator:
                              (index + 1) * self.batch_size]
         return self.get_data(batch)
 
+    def epoch(self):
+        """One epoch's batches in order, then the epoch-end shuffle."""
+        for i in range(len(self)):
+            yield self[i]
+        self.on_epoch_end()
+
     def get_data(self, batch):
         raise NotImplementedError
 

@@ -1,0 +1,102 @@
+"""Host -> device input pipeline: batches synthesized in a background thread
+and copied to the card while the current step runs (tcnerf/data/prefetch.py).
+
+The producer thread draws every batch from the host iterator (so the data
+generator's numpy RNG is used by that thread alone, in the plain loop's
+order), copies it into pinned memory and starts the host-to-device copy on a
+side CUDA stream, then records an event. The consumer makes its current
+stream wait on that event before it hands the batch out, and marks the
+batch's tensors as used on its stream so that the caching allocator does not
+reuse them early. On the CPU the batches are the arrays themselves, as
+`generators.to_device` gives them. An exception raised in the producer is
+raised again in the consumer.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator
+
+import numpy as np
+import torch
+
+
+def _host(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _map(fn, batch):
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_map(fn, x) for x in batch)
+    return fn(batch)
+
+
+def prefetch_to_device(batch_iter: Iterator, device: torch.device,
+                       size: int = 2) -> Iterator:
+    """Yield the batches of `batch_iter` (nested tuples of numpy arrays) as
+    tensors on `device`, up to `size` batches ahead of the consumer."""
+    q: "queue.Queue" = queue.Queue(maxsize=size)
+    sentinel = object()
+    err = []
+    stop = threading.Event()
+    cuda = device.type == "cuda"
+    stream = torch.cuda.Stream(device) if cuda else None
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for batch in batch_iter:
+                if not cuda:
+                    item = (_map(_host, batch), None)
+                else:
+                    with torch.cuda.stream(stream):
+                        moved = _map(lambda a: _host(a).pin_memory().to(
+                            device, non_blocking=True), batch)
+                        event = torch.cuda.Event()
+                        event.record(stream)
+                    item = (moved, event)
+                if not put(item):
+                    return
+        except Exception as e:          # raised again on the consumer side
+            err.append(e)
+        finally:
+            put(sentinel)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if err:
+                    raise err[0]
+                return
+            batch, event = item
+            if event is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(event)
+                _map(lambda t: t.record_stream(current), batch)
+            yield batch
+    finally:
+        stop.set()
+        thread.join()
+
+
+def prefetched_epochs(data_generator, n_epochs: int, device: torch.device,
+                      size: int = 2) -> Iterator:
+    """`n_epochs` epochs of a DataGenerator's (inputs, labels) batches,
+    synthesized in the background and copied to `device` ahead of use."""
+    def host_batches():
+        for _ in range(n_epochs):
+            yield from data_generator.epoch()
+
+    return prefetch_to_device(host_batches(), device, size=size)

@@ -140,8 +140,9 @@ class MVNeRFRenderer(nn.Module):
 
         'without': the visual features upsampled 2x, aux 0. v0..v4: the
         fusion of `clip_outputs` (the CLIP tower's 5-tuple; computed from
-        the preprocessed sources when None) with the visual features, gated
-        by `clip_textuals` [B*V, clip_embed_dim] (ones when None)."""
+        the preprocessed sources, without autograd, when None) with the
+        visual features, gated by `clip_textuals` [B*V, clip_embed_dim]
+        (ones when None, the NeRF trainers' placeholder)."""
         with record_function("tcnerf.encode"):
             vis = self.encode(src_images_flat)
         if self.fusion == "without":
@@ -150,7 +151,10 @@ class MVNeRFRenderer(nn.Module):
                 up = resize_bilinear(vis, (h * 2, w * 2))
             return up, torch.zeros((), dtype=up.dtype, device=up.device)
         if clip_outputs is None:
-            with record_function("tcnerf.clip"):
+            # the frozen tower without autograd: its parameters take no
+            # update and its input is no parameter, so no gradient of the
+            # step goes through it (the JAX optimizer's `set_to_zero`)
+            with record_function("tcnerf.clip"), torch.no_grad():
                 clip_outputs = self.clip_visual(
                     preprocess(src_images_flat, self.clip_image_size))
         if clip_textuals is None:

@@ -25,13 +25,15 @@ class ResNetMLPBlock(nn.Module):
 
     def __init__(self, in_features: int, hidden_size: int, output_size: int,
                  transform_shortcut: bool = False, activation: str = "relu",
+                 kernel_initializer: str = "lecun_normal",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.activation = activation
-        self.layer_0 = Dense(in_features, hidden_size, dtype=dtype)
-        self.layer_1 = Dense(hidden_size, output_size, dtype=dtype)
-        self.shortcut = (Dense(in_features, output_size, use_bias=False,
-                               dtype=dtype) if transform_shortcut else None)
+        kw = dict(dtype=dtype, kernel_init=kernel_initializer)
+        self.layer_0 = Dense(in_features, hidden_size, **kw)
+        self.layer_1 = Dense(hidden_size, output_size, **kw)
+        self.shortcut = (Dense(in_features, output_size, use_bias=False, **kw)
+                         if transform_shortcut else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         act = activation_fn(self.activation)
@@ -57,10 +59,12 @@ class Readout(nn.Module):
     """relu -> Dense(out)."""
 
     def __init__(self, in_features: int, output_size: int,
-                 use_bias: bool = True, dtype: Optional[torch.dtype] = None):
+                 use_bias: bool = True,
+                 kernel_initializer: str = "lecun_normal",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.output_layer = Dense(in_features, output_size, use_bias=use_bias,
-                                  dtype=dtype)
+                                  dtype=dtype, kernel_init=kernel_initializer)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.output_layer(torch.relu(x))

@@ -21,14 +21,18 @@ def _compute_dtype(dtype, x: torch.Tensor, p: torch.Tensor) -> torch.dtype:
 
 
 class Dense(nn.Module):
-    """flax `nn.Dense`: weight in nn.Linear layout [out, in]."""
+    """flax `nn.Dense`: weight in nn.Linear layout [out, in]. `kernel_init`
+    names the flax initializer that `params.init_params` follows
+    ("lecun_normal", flax's default, "glorot_uniform" or "he_normal")."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 kernel_init: str = "lecun_normal"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.dtype = dtype
+        self.kernel_init = kernel_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)

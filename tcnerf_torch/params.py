@@ -71,9 +71,30 @@ def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _dense_init(p: torch.Tensor, kind: str, generator: torch.Generator):
+    """flax's glorot_uniform (uniform, limit sqrt(6 / (fan_in + fan_out)))
+    or he_normal (normal truncated at 2 std, variance 2 / fan_in) for an
+    [out, in] weight."""
+    fan_out, fan_in = p.shape
+    u = torch.rand(p.shape, generator=generator, device=p.device,
+                   dtype=torch.float64)
+    if kind == "glorot_uniform":
+        p.copy_((2 * u - 1) * math.sqrt(6 / (fan_in + fan_out)))
+    elif kind == "he_normal":
+        # inverse CDF of the standard normal truncated to [-2, 2]
+        lo = 0.5 * (1 + math.erf(-2 / math.sqrt(2)))
+        z = math.sqrt(2) * torch.erfinv(2 * (lo + u * (1 - 2 * lo)) - 1)
+        # flax's scale for the truncation: std / 0.8796...
+        p.copy_(z * math.sqrt(2 / fan_in) / .87962566103423978)
+    else:
+        raise ValueError(f"kernel initializer {kind} not supported")
+
+
 def init_params(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation with flax's default scales: weights normal with
-    std 1/sqrt(fan_in) (lecun), biases and BN means zero, norm scales and BN
+    std 1/sqrt(fan_in) (lecun), except a `Dense` that names another flax
+    initializer (`kernel_init`: glorot_uniform, he_normal; the grasp
+    readout's), biases and BN means zero, norm scales and BN
     variances one, pos_embedding normal(0.02), cls_token zero, and the CLIP
     towers' own initialisers: token embedding normal(0.02), the text
     positional embedding normal(0.01), AttentionPool2d's normal / sqrt(c),
@@ -83,10 +104,15 @@ def init_params(model: torch.nn.Module, generator: torch.Generator) -> None:
         p.copy_(std * torch.randn(p.shape, generator=generator,
                                   device=p.device))
 
+    kinds = {f"{m}.weight": mod.kernel_init
+             for m, mod in model.named_modules()
+             if getattr(mod, "kernel_init", "lecun_normal") != "lecun_normal"}
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if name.endswith("token_embedding.weight"):
+            if name in kinds:
+                _dense_init(p, kinds[name], generator)
+            elif name.endswith("token_embedding.weight"):
                 normal(p, 0.02)
             elif leaf == "weight":
                 if p.dim() == 4 and name.endswith("_deconv.weight"):

@@ -1,8 +1,9 @@
-"""The trainer's configuration: the composed `nerf_1_view_wo` config of
-tcnerf/configs (default_nerf + nerf_model/1_view + nerf_training/1_view_wo)
-as a Python dict, dotted `key=value` overrides and `${a.b}` interpolation,
-as tcnerf/train/config.py composes it from YAML (this package reads no
-YAML: the card's machine has no PyYAML).
+"""The entry points' configurations: the composed configs of tcnerf/configs
+that the port runs (`CONFIGS`: the stage-1 `nerf_1_view_wo`, `nerf_1_view`,
+`nerf_3_view`, `nerf_1_view_v4_elu` and the grasp `goal_1_view`,
+`language_1_view`) as Python dicts, dotted `key=value` overrides and
+`${a.b}` interpolation, as tcnerf/train/config.py composes them from YAML
+(this package reads no YAML: the card's machine has no PyYAML).
 
 Override values are Python literals (`8`, `[48,64]`, `'x'`), `true`,
 `false` or `null`; anything else is a string: `data_dir=/tmp/run`.
@@ -15,24 +16,110 @@ import copy
 import re
 from typing import Any, Dict, Iterable
 
-NERF_1_VIEW_WO: Dict[str, Any] = {
+def _merge(*parts: Dict) -> Dict:
+    """Deep merge, later parts winning (the YAML defaults lists' order)."""
+    out: Dict[str, Any] = {}
+    for part in parts:
+        for k, v in part.items():
+            if isinstance(out.get(k), dict) and isinstance(v, dict):
+                out[k] = _merge(out[k], v)
+            else:
+                out[k] = copy.deepcopy(v)
+    return out
+
+
+# the YAML files of tcnerf/configs, one dict each
+_DEFAULT = {
     "ws_dir": "./workspace",
     "data_dir": "./data",
     "torch_weights_path":
         "${data_dir}/storage/transformer_weights/weights.pkl",
     "clip_weights_path": "${data_dir}/storage/clip_weights/RN50.pt",
     "seed": 0,
+}
+_DEFAULT_NERF = _merge(_DEFAULT, {
     "dataset": {"path": "${data_dir}/storage/data/nerf/simple",
                 "n_perspectives": 50},
     "valid_sample_idx": 3,
     "valid_perspective_src_indices": [5, 8, 15],
     "valid_perspective_tgt_idx": 12,
-    "nerf_model": {"n_rays_train": 512, "n_rays_infer": 512, "n_samples": 64,
-                   "n_features": 256, "near": 0.3, "far": 1.3,
-                   "original_image_size": [480, 640], "n_views": 1},
-    "nerf_training": {"n_epochs": 1600, "eval_after_epochs": 16,
-                      "batch_size": 8, "fusion": "without",
-                      "model_path": "${data_dir}/storage/models/nerf/wo/1_view"},
+})
+_NERF_MODEL = {"n_rays_train": 512, "n_rays_infer": 512, "n_samples": 64,
+               "n_features": 256, "near": 0.3, "far": 1.3,
+               "original_image_size": [480, 640]}
+_NERF_TRAINING = {"n_epochs": 1600, "eval_after_epochs": 16}
+_WORKSPACE = {"workspace_bounds": [[0.35, 0.85], [-0.25, 0.25], [0.0, 0.2]]}
+_GRASP_TRAINING = {"n_epochs": 400, "eval_after_epochs": 4,
+                   "learning_rate": 0.0001, "batch_size": 8}
+_VALIDATION_3_IMAGES = {
+    "oracle": {"oracle_type": "suction_grasp-oracle",
+               "gripper_offset": {"rotation": [3.14159265359, 0.0,
+                                               1.57079632679]}},
+    # module names of the JAX package's task plugins, kept as data
+    "plugins": {"plugins": ["tcnerf.tasks.plugins.primitives.pick_and_place",
+                            "tcnerf.tasks.plugins.objects.base",
+                            "tcnerf.tasks.plugins.tasks.grasp_task",
+                            "tcnerf.tasks.plugins.oracles.suction_grasp"]},
+    "valid_sample_indices": [0, 4, 7],
+    "assets_root": "${ws_dir}/assets",
+    "disp": False,
+    "shared_memory": False,
+    "task": "picking-seen-google-objects-seq",
+    "grasp_opt_config": {
+        "optimizer_config": {"n_initial_guesses": 4096, "n_images": 3,
+                             "clip_translation": True},
+        "optimization_config": {"n_optimization_steps": 16,
+                                "init_lr_t": 0.05, "init_lr_r": 0.05,
+                                "decay_t": 0.9, "decay_r": 0.09}},
+}
+
+
+def _nerf(n_views: int, training: Dict, model: Dict = None) -> Dict:
+    return _merge(_DEFAULT_NERF, {
+        "nerf_model": _merge(_NERF_MODEL, {"n_views": n_views}, model or {}),
+        "nerf_training": _merge(_NERF_TRAINING, training)})
+
+
+def _models_path(tail: str) -> str:
+    return "${data_dir}/storage/models/" + tail
+
+
+# the composed configs (tcnerf/configs/<name>.yaml)
+CONFIGS: Dict[str, Dict[str, Any]] = {
+    "nerf_1_view_wo": _nerf(1, {"batch_size": 8, "fusion": "without",
+                                "model_path": _models_path("nerf/wo/1_view")}),
+    "nerf_1_view": _nerf(1, {"batch_size": 1, "fusion": "v0",
+                             "model_path": _models_path("nerf/v0/1_view")}),
+    "nerf_3_view": _nerf(3, {"batch_size": 8, "fusion": "v0",
+                             "model_path": _models_path("nerf/v0/3_view")}),
+    "nerf_1_view_v4_elu": _nerf(
+        1, {"batch_size": 1, "fusion": "v4",
+            "model_path": _models_path("nerf/v4_w_elu/1_view")},
+        {"fusion_use_dense": True, "fusion_activation": "elu"}),
+    "goal_1_view": _merge(_DEFAULT, {
+        "dataset": {"path": "${data_dir}/storage/data/goal/simple",
+                    "n_perspectives": 5},
+        "grasp_model": {"n_5d_poses": 7},
+        "generator_grasp": _merge(_WORKSPACE, {"n_points_train": 512,
+                                               "n_r_fraction": 32}),
+        "nerf_model": _merge(_NERF_MODEL, {"n_views": 1}),
+        "grasp_training": _merge(_GRASP_TRAINING, {
+            "model_path": _models_path("grasp/simple/goal_1_view"),
+            "backbone_path": _models_path("nerf/simple/1_view"),
+            "loss": "kl_divergence", "readout_flavor": "goal"}),
+        "validation": _VALIDATION_3_IMAGES}),
+    "language_1_view": _merge(_DEFAULT, {
+        "dataset": {"path": "${data_dir}/storage/data/language/simple",
+                    "n_perspectives": 50},
+        "generator_grasp": _merge(_WORKSPACE, {"pose_augmentation_factor": 32,
+                                               "n_future_poses": 6}),
+        "nerf_model": _merge(_NERF_MODEL, {"n_views": 1}),
+        "grasp_model": {"n_5d_poses": 7, "rotation_representation": "6d"},
+        "grasp_training": _merge(_GRASP_TRAINING, {
+            "model_path": _models_path("grasp/v4_w_elu-val/language_1_view"),
+            "backbone_path": _models_path("nerf/v4_w_elu/1_view"),
+            "loss": "kl_divergence", "fusion": "v4", "readout_bias": True}),
+        "validation": _VALIDATION_3_IMAGES}),
 }
 
 _INTERP = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
@@ -102,12 +189,30 @@ def _interpolate(cfg: Dict, node: Any) -> Any:
     return node
 
 
-def load_config(overrides: Iterable[str] = ()) -> Config:
-    """The composed config with `overrides` applied, then interpolated."""
-    cfg = apply_overrides(copy.deepcopy(NERF_1_VIEW_WO), overrides)
+def load_config(overrides: Iterable[str] = (),
+                config_name: str = "nerf_1_view") -> Config:
+    """The composed config `config_name` (a key of CONFIGS) with
+    `overrides` applied, then interpolated."""
+    if config_name not in CONFIGS:
+        raise ValueError(f"unknown config {config_name!r}; one of "
+                         f"{sorted(CONFIGS)}")
+    cfg = apply_overrides(copy.deepcopy(CONFIGS[config_name]), overrides)
     for _ in range(8):                    # nested ${} references
         new = _interpolate(cfg, cfg)
         if new == cfg:
             break
         cfg = new
     return Config.wrap(cfg)
+
+
+def parse_argv(argv: Iterable[str], config_name: str):
+    """CLI arguments -> (config name, overrides): `--config-name=<name>`
+    picks the config, as tcnerf/train/config.py `main_config` does; every
+    other argument is an override."""
+    rest = []
+    for a in argv:
+        if a.startswith("--config-name="):
+            config_name = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    return config_name, rest

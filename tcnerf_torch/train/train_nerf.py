@@ -1,6 +1,6 @@
 """Stage-1 NeRF training (tcnerf/train/train_nerf.py).
 
-    python -m tcnerf_torch.train.train_nerf [key=value ...]
+    python -m tcnerf_torch.train.train_nerf [--config-name=<name>] [key=value ...]
 
 runs on the card; `device=cpu` runs on the CPU, e.g. at a tiny size:
 
@@ -9,58 +9,73 @@ runs on the card; `device=cpu` runs on the CPU, e.g. at a tiny size:
         nerf_model.n_rays_train=32 'nerf_model.vit_size=[32,32]' \\
         nerf_model.vit_dim=32 nerf_model.vit_heads=2 \\
         'nerf_model.vit_hooks=[1,2,3,4]' nerf_model.n_blocks=2 \\
+        'nerf_model.clip_layers=[1,1,1,1]' nerf_model.clip_width=8 \\
+        nerf_model.clip_embed_dim=32 nerf_model.clip_image_size=32 \\
         nerf_training.n_epochs=2 nerf_training.eval_after_epochs=1 \\
-        nerf_training.batch_size=1 nerf_training.warmup_steps=5 \\
+        nerf_training.warmup_steps=5 \\
         dataset.n_perspectives=6 dataset.n_synthetic_samples=2 \\
         valid_sample_idx=0 'valid_perspective_src_indices=[1]' \\
         valid_perspective_tgt_idx=4
 
-The configuration is `train/config.py`'s `nerf_1_view_wo` with overrides.
-`build_model` takes the JAX trainer's knobs and defaults: `remat` and the
-4-tap gather (`corner_gather` off), the plain chain (`pallas_mlp` off;
-`nerf_model.pallas_mlp=true` runs the chain halves through K1',
+The configuration is `nerf_1_view` (fusion v0, batch 1), as the JAX entry
+point's; `--config-name=` picks another of `train/config.py`'s stage-1
+configs (`nerf_3_view`, `nerf_1_view_v4_elu`, `nerf_1_view_wo`), and
+`train_without` is this entry pinned to `nerf_1_view_wo` and fusion
+"without". `build_model` takes the JAX trainer's knobs and defaults: `remat`
+and the 4-tap gather (`corner_gather` off), the plain chain (`pallas_mlp`
+off; `nerf_model.pallas_mlp=true` runs the chain halves through K1',
 ops/resmlp.py `resmlp_rows_diff`) and `fusion` "v0" where the config names
-none. Datasets are synthesized when `dataset.path`
-holds none. Each fit round of `eval_after_epochs` epochs ends with a
-validation render through `render_view` and its PSNR; a validation runs
-before the first round too.
+none. The frozen CLIP tower runs without autograd (renderer.py
+`combine_features`). Datasets are synthesized when `dataset.path` holds
+none. Batches come through `data/prefetch.py` `prefetched_epochs`. Each fit
+round of `eval_after_epochs` epochs ends with a validation render through
+`render_view`, its PSNR and the strip `<model_path>/valid/valid-<epoch>.png`
+(source views, target, render, depth; written with the stdlib, as the
+card's machine has no PIL); a validation runs before the first round too.
+Each validation appends a line to `<model_path>/metrics.jsonl`.
 
-Not here, because their file formats need packages the card's machine
-lacks: checkpoints and resuming (flax msgpack) and the PNG validation strip
-(PIL). Training is held against the JAX trainer for fusion "without" only;
-the CLIP-fused models (`fusion` v0-v4) are not compared in training yet.
+Not here: checkpoints, resuming and `training_progress.json`, which wait
+for checkpoint interop (flax msgpack; ROADMAP Queue A item 4).
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
+import struct
 import sys
 import time
+import zlib
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
-from ..data.generators import MVNeRFDataGenerator, to_device
+from ..data.generators import MVNeRFDataGenerator
 from ..data.loaders import ensure_dataset, load_dataset_nerf
+from ..data.prefetch import prefetched_epochs
 from ..device import resolve_device
 from ..models import training as T
 from ..models.inference import psnr, render_view
 from ..models.renderer import MVNeRFRenderer
 from ..params import init_params
-from .config import load_config
+from .config import load_config, parse_argv
 
 log = logging.getLogger("tcnerf_torch.train")
 
 
-def build_model(cfg, device: torch.device) -> MVNeRFRenderer:
+def build_model(cfg, device: torch.device,
+                fusion: Optional[str] = None) -> MVNeRFRenderer:
     """The renderer of `cfg.nerf_model` on `device`, seeded weights. Every
-    knob and default is tcnerf/train/train_nerf.py `build_model`'s."""
+    knob and default is tcnerf/train/train_nerf.py `build_model`'s;
+    `fusion` overrides `cfg.nerf_training.fusion`."""
     nm = cfg.nerf_model
     model = MVNeRFRenderer(
         n_views=nm.n_views, n_samples=nm.n_samples, n_features=nm.n_features,
         near=nm.near, far=nm.far,
         original_image_size=tuple(nm.original_image_size),
-        fusion=cfg.nerf_training.get("fusion", "v0"),
+        fusion=fusion or cfg.nerf_training.get("fusion", "v0"),
         n_blocks=nm.get("n_blocks", 6), hidden_size=nm.get("hidden_size", 128),
         vit_size=tuple(nm.get("vit_size", (224, 224))),
         vit_patch=nm.get("vit_patch", 16), vit_dim=nm.get("vit_dim", 768),
@@ -101,51 +116,100 @@ def load_validation(cfg, dataset) -> Dict:
             "tgt_colors": colors.read_sample_at_idx(i, tgt)}
 
 
-def run_validation(model, valid_data, device, generator) -> float:
-    """Render the validation target view; its PSNR against the capture."""
-    rgb, _ = render_view(model, valid_data["src_colors"],
-                         valid_data["src_camera_configs"],
-                         valid_data["tgt_camera_config"], generator=generator,
-                         device=device)
-    return psnr(rgb, valid_data["tgt_colors"][..., :3])
+def write_png(path: str, image: np.ndarray) -> None:
+    """An [H, W, 3] uint8 image as an 8-bit RGB PNG (no filter, zlib)."""
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    h, w, c = image.shape
+    if c != 3:
+        raise ValueError(f"write_png takes [H, W, 3] images, got {image.shape}")
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           image.reshape(h, w * 3)], axis=1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def save_validation_strip(path, src_colors, tgt_color, rendered_rgb,
+                          rendered_depth) -> None:
+    """Side-by-side source views / target / render / depth PNG
+    (tcnerf/train/train_nerf.py:82-92)."""
+    parts = [np.asarray(c)[..., :3] for c in src_colors]
+    parts.append(np.asarray(tgt_color)[..., :3])
+    parts.append(rendered_rgb)
+    parts.append(np.repeat(rendered_depth, 3, axis=-1))
+    write_png(path, np.concatenate(parts, axis=1))
+
+
+def run_validation(model, valid_data, device, generator, out_path) -> float:
+    """Render the validation target view, write its strip to `out_path`;
+    its PSNR against the capture."""
+    rgb, depth = render_view(model, valid_data["src_colors"],
+                             valid_data["src_camera_configs"],
+                             valid_data["tgt_camera_config"],
+                             generator=generator, device=device)
+    save_validation_strip(out_path, valid_data["src_colors"],
+                          valid_data["tgt_colors"], rgb, depth)
+    value = psnr(rgb, valid_data["tgt_colors"][..., :3])
+    log.info("validation PSNR: %.2f dB -> %s", value, out_path)
+    return value
 
 
 def train_model(state: T.TrainState, data_generator: MVNeRFDataGenerator,
                 cfg, valid_data, device: torch.device,
                 generator: torch.Generator) -> Dict[str, List]:
-    """n_epochs // eval_after_epochs fit rounds of eval_after_epochs epochs.
-    Returns the history: per step its loss and host seconds (batch
-    synthesis `data_s`, the whole step `step_s`, ending when the loss has
-    reached the host), and per validation (epoch, PSNR dB)."""
+    """n_epochs // eval_after_epochs fit rounds of eval_after_epochs epochs,
+    fed by `prefetched_epochs`. Returns the history: per step its loss and
+    host seconds (`data_s`, the wait for the prefetched batch; `step_s`, the
+    whole step, ending when the loss has reached the host), and per
+    validation (epoch, PSNR dB)."""
     nt = cfg.nerf_training
     history: Dict[str, List] = {"steps": [], "valid": []}
-    value = run_validation(state.model, valid_data, device, generator)
-    history["valid"].append((0, value))
-    log.info("validation PSNR before training: %.2f dB", value)
+    valid_dir = os.path.join(nt.model_path, "valid")
+    os.makedirs(valid_dir, exist_ok=True)
+    metrics_file = os.path.join(nt.model_path, "metrics.jsonl")
+
+    def validate(epoch: int, loss: Optional[float]) -> None:
+        value = run_validation(state.model, valid_data, device, generator,
+                               os.path.join(valid_dir, f"valid-{epoch}.png"))
+        history["valid"].append((epoch, value))
+        with open(metrics_file, "a") as f:
+            json.dump({"epoch": epoch, "loss": loss, "psnr_db": value,
+                       "t": time.time()}, f)
+            f.write("\n")
+
+    validate(0, None)
     for k in range(nt.n_epochs // nt.eval_after_epochs):
-        for _ in range(nt.eval_after_epochs):
-            for i in range(len(data_generator)):
-                t0 = time.perf_counter()
-                inputs, labels = to_device(*data_generator[i], device)
-                t_data = time.perf_counter() - t0
-                state, metrics = T.nerf_train_step(state, inputs, labels,
-                                                   generator)
-                loss = float(metrics["loss"])
-                history["steps"].append(dict(
-                    step=state.step, loss=loss, data_s=t_data,
-                    step_s=time.perf_counter() - t0))
-            data_generator.on_epoch_end()
+        batches = iter(prefetched_epochs(data_generator, nt.eval_after_epochs,
+                                         device))
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            t_data = time.perf_counter() - t0
+            state, metrics = T.nerf_train_step(state, *batch, generator)
+            loss = float(metrics["loss"])
+            history["steps"].append(dict(
+                step=state.step, loss=loss, data_s=t_data,
+                step_s=time.perf_counter() - t0))
         epoch = (k + 1) * nt.eval_after_epochs
         log.info("epoch %d: loss %.5f", epoch, history["steps"][-1]["loss"])
-        value = run_validation(state.model, valid_data, device, generator)
-        history["valid"].append((epoch, value))
-        log.info("validation PSNR after epoch %d: %.2f dB", epoch, value)
+        validate(epoch, history["steps"][-1]["loss"])
     return history
 
 
-def _main(cfg, device: Optional[torch.device] = None):
-    """Data, model and optimizer from `cfg`, then `train_model`. Returns
-    (state, history)."""
+def _main(cfg, device: Optional[torch.device] = None,
+          fusion: Optional[str] = None):
+    """Data, model and optimizer from `cfg`, then `train_model`. `fusion`
+    overrides `cfg.nerf_training.fusion`, as the JAX `_main`'s does.
+    Returns (state, history)."""
     dev = resolve_device(device or cfg.get("device"))
     nm = cfg.nerf_model
     span = cfg.dataset.get("azimuth_span_deg")
@@ -165,7 +229,7 @@ def _main(cfg, device: Optional[torch.device] = None):
         train_data, n_rays_train=nm.n_rays_train,
         batch_size=cfg.nerf_training.batch_size, n_views=nm.n_views,
         shuffle=True, rng=seed)
-    model = build_model(cfg, dev)
+    model = build_model(cfg, dev, fusion)
     nt = cfg.nerf_training
     state = T.create_train_state(model, T.make_nerf_optimizer(
         model, nerf_lr=nt.get("learning_rate", 1e-4),
@@ -178,10 +242,19 @@ def _main(cfg, device: Optional[torch.device] = None):
     return state, history
 
 
-def main(argv: Optional[List[str]] = None):
+def entry(argv: Optional[List[str]], config_name: str,
+          fusion: Optional[str] = None):
+    """The CLI: `--config-name=` and overrides from `argv` (default
+    sys.argv), logging to stderr, then `_main`."""
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(levelname)s %(message)s")
-    return _main(load_config(sys.argv[1:] if argv is None else argv))
+    name, overrides = parse_argv(sys.argv[1:] if argv is None else argv,
+                                 config_name)
+    return _main(load_config(overrides, name), fusion=fusion)
+
+
+def main(argv: Optional[List[str]] = None):
+    return entry(argv, "nerf_1_view")
 
 
 if __name__ == "__main__":

@@ -245,6 +245,30 @@ def test_split_matches_regex_pattern():
             == text, repr(s)
         assert tokenizer._split(text) == regex.findall(jtok._PATTERN, text), \
             repr(s)
+    # every code point that regex's \p{L} / \p{N} or unicodedata calls a
+    # letter or a number, each between an ASCII letter and a digit
+    import unicodedata
+    letter, number = regex.compile(r"\p{L}"), regex.compile(r"\p{N}")
+    points = [chr(c) for c in range(0x110000) if not 0xD800 <= c <= 0xDFFF
+              and (letter.match(chr(c)) or number.match(chr(c))
+                   or unicodedata.category(chr(c))[0] in "LN")]
+    assert len(points) > 130000
+    for ch in points:
+        want = "L" if letter.match(ch) else "N"
+        assert tokenizer._kind(ch) == want, hex(ord(ch))
+    text = " ".join(f"a{ch}1" for ch in points)
+    assert tokenizer._split(text) == regex.findall(jtok._PATTERN, text)
+
+
+def test_tokenize_newer_unicode_letter_matches_jax():
+    """U+0C5C (a Telugu letter newer than Python 3.12's Unicode 15.0) is a
+    letter, as the JAX tokenizer with `regex` has it: "a\u0c5cb" is one
+    word."""
+    import regex  # noqa: F401  (the JAX tokenizer's pattern needs it)
+    want = jtok.tokenize("a\u0c5cb")
+    got = tokenizer.tokenize("a\u0c5cb")
+    np.testing.assert_array_equal(got, want)
+    assert list(got[0][:6]) == [49406, 64, 156, 109, 250, 321]
 
 
 def test_tokenizer_imports_no_regex_and_has_its_own_vocab():

@@ -564,3 +564,141 @@ def test_three_view_chunk_with_k1_matches_plain_chain(cuda):
             _close(got.cpu().numpy(), want.cpu().numpy(), 2e-2)
         else:
             assert torch.allclose(got, want, rtol=3e-2, atol=2e-2)
+
+
+# ------------------------------------------------- grasp serving, fused trainers
+
+def _tiny_grasp(device, dtype=torch.float32, **kw):
+    """A tiny goal GraspEBM (48x64 sources, n_features 32, 18 probes, 2
+    blocks, hidden 32, ViT 32^2), seeded on the CPU, then moved."""
+    from tcnerf_torch.models.grasp import GraspEBM
+    m = GraspEBM(n_views=1, n_features=32, original_image_size=(48, 64),
+                 n_5d_poses=3, n_blocks=2, hidden_size=32, vit_size=(32, 32),
+                 vit_dim=32, vit_heads=2, vit_hooks=(1, 2, 3, 4),
+                 readout_activation="elu", **kw)
+    init_params(m, torch.Generator().manual_seed(0))
+    return m.to(device=device, dtype=dtype).eval()
+
+
+def _grasp_inputs():
+    from tcnerf_torch.data.synthetic import camera_ring
+    rng = np.random.default_rng(21)
+    cfgs = camera_ring(3, height=48, width=64)
+    k4 = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    k4[:, :3, :3] = [c["intrinsics"].reshape(3, 3) for c in cfgs]
+    ext = np.asarray([np.linalg.inv(c["pose"]) for c in cfgs], np.float32)
+    images = rng.uniform(size=(1, 3, 48, 64, 3)).astype(np.float32)
+    return images, k4[None], ext[None]
+
+
+def _pose_optimizer(model, n=16):
+    from tcnerf_torch.opt.pose_optimizer import PoseOptimizer
+    return PoseOptimizer(model=model, workspace_bounds=(
+        (0.35, 0.85), (-0.25, 0.25), (0.0, 0.2)), n_initial_guesses=n,
+        n_images=3, clip_translation=True, init_lr_t=0.05, decay_t=0.9,
+        init_lr_r=0.05, decay_r=0.09)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("corner", [True, False])
+def test_grasp_energy_and_pose_gradient_on_card_match_cpu(cuda, corner):
+    """GraspEBM's features, energies and d(sum E)/d(t, r) of 16 guesses on
+    the card against the same model on the CPU (f32, TF32 off): max err
+    within 1e-3 x max |cpu|."""
+    from tcnerf_torch.core.prec import pin_fp32
+    from tcnerf_torch.opt.pose_optimizer import frozen
+    pin_fp32()
+    images, intr, ext = _grasp_inputs()
+    out = []
+    for dev in ("cpu", cuda):
+        opt = _pose_optimizer(_tiny_grasp(dev, corner_gather=corner))
+        with torch.no_grad():
+            feats = opt.model.compute_features(torch.as_tensor(images,
+                                                               device=dev))
+        scene = opt.prepare((images, intr, ext), feats)
+        state = opt.init_state(opt.generate_initial_guesses(0))
+        t = state.translations.requires_grad_()
+        r = state.rotations.requires_grad_()
+        with frozen(opt.model):
+            e = opt._energies(t, r, scene)
+            grads = torch.autograd.grad(e.sum(), [t, r])
+        out.append([x.detach().cpu() for x in (feats, e, *grads)])
+    for got, want in zip(out[1], out[0]):
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= 1e-3 * float(
+            want.abs().max())
+
+
+@pytest.mark.gpu
+def test_pose_ascent_on_card_matches_cpu_in_f64(cuda):
+    """Three synchronized ascent steps of 16 guesses, then the alternating
+    `compute_results` schedule, on the card against the CPU in f64 (Adam's
+    first step is a sign step, f64 keeps the gradients' signs alike):
+    poses within 1e-6, energies within 1e-6 relative."""
+    from tcnerf_torch.opt.pose_optimizer import compute_results
+    images, intr, ext = _grasp_inputs()
+    res = []
+    for dev in ("cpu", cuda):
+        opt = _pose_optimizer(_tiny_grasp(dev, dtype=torch.float64))
+        with torch.no_grad():
+            feats = opt.model.compute_features(
+                torch.as_tensor(images, dtype=torch.float64, device=dev))
+        scene = opt.prepare((images, intr, ext), feats)
+        state, trace = opt.optimize_pose(
+            opt.init_state(opt.generate_initial_guesses(1)), scene,
+            (True, True), 3)
+        losses, _, poses, _, _, _ = compute_results(
+            opt, (images, intr, ext), feats, n_optimization_steps=2,
+            init_lr_t=0.05, decay_t=0.9, init_lr_r=0.05, decay_r=0.09, rng=2)
+        res.append((state.translations.cpu(), state.rotations.cpu(),
+                    trace.cpu(), torch.as_tensor(losses),
+                    torch.as_tensor(np.asarray([p.matrix for p in poses]))))
+    for got, want in zip(*res[::-1]):
+        scale = max(float(want.abs().max()), 1.0)
+        assert float((got - want).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.gpu
+def test_prefetch_to_the_card_keeps_the_batches(cuda):
+    """Batches through the side stream equal the host arrays, in order."""
+    from tcnerf_torch.data.prefetch import prefetch_to_device
+    rng = np.random.default_rng(2)
+    host = [((rng.normal(size=(64, 3)).astype(np.float32),),
+             rng.normal(size=(5,)).astype(np.float32)) for _ in range(6)]
+    got = list(prefetch_to_device(iter(host), cuda, size=2))
+    assert len(got) == 6
+    for (gi, gl), (hi, hl) in zip(got, host):
+        assert gi[0].is_cuda and gl.is_cuda
+        np.testing.assert_array_equal(gi[0].cpu().numpy(), hi[0])
+        np.testing.assert_array_equal(gl.cpu().numpy(), hl)
+
+
+@pytest.mark.gpu
+def test_fused_train_step_on_card_keeps_the_tower_frozen(cuda):
+    """Two train steps of the tiny v0 model with pallas_mlp on the card:
+    finite losses, K1' launched (8 per step: 4 forward, 4 in the
+    embeddings' remat), every CLIP tower weight bit-identical and without a
+    gradient, the nerf group moved."""
+    m = _tiny_fused(cuda, pallas_mlp=True, corner_gather=False, remat=True)
+    m.train()
+    frozen = {n: p.detach().clone() for n, p in m.named_parameters()
+              if training.param_group(n) == "frozen"}
+    before = {n: p.detach().clone() for n, p in m.named_parameters()}
+    ro, rd, src, k4, ext, _, _ = _fused_scene(cuda, n_rays=64)
+    labels = torch.rand((1, 64, 3), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    state = training.create_train_state(
+        m, training.make_nerf_optimizer(m, warmup_steps=1))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    n0 = RESMLP.counts["resmlp_rows_diff"]
+    for _ in range(2):
+        _, metrics = training.nerf_train_step(state, (ro, rd, src, k4, ext),
+                                              labels, gen)
+        assert np.isfinite(float(metrics["loss"]))
+    assert RESMLP.counts["resmlp_rows_diff"] - n0 == 16
+    for n, p in m.named_parameters():
+        if n in frozen:
+            assert p.grad is None and torch.equal(p.detach(), frozen[n]), n
+    assert any(not torch.equal(p.detach(), before[n])
+               for n, p in m.named_parameters()
+               if training.param_group(n) == "nerf")

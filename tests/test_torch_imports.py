@@ -29,3 +29,36 @@ def test_no_jax_imports(path):
 
 def test_files_found():
     assert len(FILES) > 10
+
+
+MODULES = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                 for p in FILES if p.parent != ROOT)
+
+
+def test_grasp_and_fused_training_modules_are_covered():
+    """The grasp serving stack and the fused trainers' modules are among
+    the files checked above."""
+    for name in ("tcnerf_torch.core.se3", "tcnerf_torch.tasks.transform",
+                 "tcnerf_torch.nn.grasp_readout", "tcnerf_torch.models.grasp",
+                 "tcnerf_torch.opt.pose_optimizer",
+                 "tcnerf_torch.models.pipeline",
+                 "tcnerf_torch.train.grasp_common",
+                 "tcnerf_torch.train.train_without",
+                 "tcnerf_torch.data.prefetch", "tcnerf_torch.clip.unicode_ln"):
+        assert name in MODULES, name
+
+
+def test_every_module_imports_with_jax_blocked():
+    """Every module of the port imports in a fresh interpreter in which
+    JAX, flax, optax and the JAX package cannot be imported at all (not
+    even through another module)."""
+    import subprocess
+    import sys
+    code = ("import importlib, sys\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'optax', 'tcnerf'):\n"
+            "    sys.modules[m] = None\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]

@@ -459,7 +459,7 @@ def test_config_matches_jax(overrides):
     """The composed nerf_1_view_wo config, with and without overrides."""
     want = jconfig.load_config(str(jconfig.__file__).rsplit("/", 2)[0]
                                + "/configs", "nerf_1_view_wo", overrides)
-    got = config.load_config(overrides)
+    got = config.load_config(overrides, "nerf_1_view_wo")
     assert got == want.to_dict()
     assert got.nerf_model.n_views == 1 and got.nerf_training.batch_size == 8
 
@@ -525,7 +525,8 @@ def test_trainer_runs_end_to_end_on_the_cpu(tmp_path):
         "nerf_training.eval_after_epochs=1", "nerf_training.batch_size=2",
         "dataset.n_perspectives=4", "dataset.n_synthetic_samples=2",
         "valid_sample_idx=0", "valid_perspective_src_indices=[0]",
-        "valid_perspective_tgt_idx=2", "nerf_model.pallas_mlp=true"])
+        "valid_perspective_tgt_idx=2", "nerf_model.pallas_mlp=true"],
+        "nerf_1_view_wo")
     state, history = train_nerf._main(cfg)
     assert state.step == 1 and len(history["steps"]) == 1
     assert np.isfinite(history["steps"][0]["loss"])
