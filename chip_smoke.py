@@ -28,7 +28,12 @@ step each). Last it serves grasp poses: `GraspPipeline.infer` on
 `goal_1_view` and on `language_1_view` (4096 guesses, 3 images, 16 ascent
 steps at full width), checked against a fresh energy of the returned poses
 and against the same model on the CPU, with its times, throughput, memory
-and a profiled ascent step. The last line is
+and a profiled ascent step. Then it trains the grasp energy with the four
+grasp entry points (`goal_1_view`, `dngf_1_view`, `trajectory_1_view-2`,
+`language_1_view`) at full width for 2 steps each on synthetic datasets,
+with their validations by pose ascent, the frozen parameters checked
+unchanged, no chain-kernel launch, a profiled step, and one step of each
+kind held against the CPU. The last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
 Imports torch and the port only.
 """
@@ -1296,10 +1301,11 @@ def relu_sides(n, take=None):
     """A torch-function mode that records, for each relu of the calls
     under it, which side of 0 each input entry lies on (`.sides`, bool
     tensors on the CPU in the input's layout). Every relu input on the
-    grasp energy's path is [batch, n guesses, ...]. With `take`, the sides
-    recorded by an earlier run of the same calls, each relu takes those
-    branches instead of its own: x where that run's input was > 0, else 0
-    (and the gradient follows)."""
+    grasp energy's path is [batch, n guesses, ...] (held unless `n` is
+    None, which records every relu, the encoder's too). With `take`, the
+    sides recorded by an earlier run of the same calls, each relu takes
+    those branches instead of its own: x where that run's input was > 0,
+    else 0 (and the gradient follows)."""
     import torch
     from torch.overrides import TorchFunctionMode
 
@@ -1314,7 +1320,7 @@ def relu_sides(n, take=None):
             if func not in relus:
                 return func(*args, **(kwargs or {}))
             x = args[0]
-            if x.dim() < 2 or x.shape[1] != n:
+            if n is not None and (x.dim() < 2 or x.shape[1] != n):
                 raise AssertionError(f"a relu input of shape "
                                      f"{tuple(x.shape)}: no guess axis")
             self.sides.append((x.detach() > 0).cpu())
@@ -1561,6 +1567,288 @@ def phase_grasp_language(dev, card):
                        text="grasp the red ball", fusion="v4", sync=False)
 
 
+# (config, trainer module, its run function, fusion, dataset kind); the
+# delta-NGF and trajectory trainers read one "grad" dataset
+GRASP_TRAIN = [
+    ("goal_1_view", "train_goal", "run_goal_training", None, "goal"),
+    ("dngf_1_view", "train_delta_ngf", "run_delta_training", None, "grad"),
+    ("trajectory_1_view-2", "train_trajectory", "run_trajectory_training",
+     None, "grad"),
+    ("language_1_view", "train_language", "run_language_training", "v4",
+     "language"),
+]
+GRASP_TRAIN_CUT = ["grasp_training.n_epochs=2",
+                   "grasp_training.eval_after_epochs=1"]
+GRASP_TRAIN_EXTRA = {"language_1_view": ["dataset.n_perspectives=5"]}
+# the chain kernels' counters: none of them lies on the grasp trainers' path
+CHAIN_COUNTS = {"K1": "resmlp_rows", "K1'": "resmlp_rows_diff",
+                "K2": "swg_head_inside", "K3": "swg_head_given"}
+
+
+def _moved(batch, dev, dtype=None):
+    """A numpy batch (nested lists / tuples) as tensors on `dev` (floats in
+    `dtype` when given)."""
+    import numpy as np
+    import torch
+    if isinstance(batch, (list, tuple)):
+        return [_moved(x, dev, dtype) for x in batch]
+    t = torch.as_tensor(np.asarray(batch), device=dev)
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+
+def grasp_train_grads(base, name, inputs, labels, dev, dtype, take=None):
+    """One step's metrics and readout gradients (before clipping, flat,
+    f64 on the CPU) of a copy of `base` on `dev` in `dtype`: the goal step
+    (kl_divergence, mean) for goal_1_view, the delta-NGF step
+    (cross-entropy, quaternions) otherwise; and the sides of 0 of every
+    relu input (`relu_sides`; with `take` the relus take those)."""
+    import copy
+
+    import torch
+    from tcnerf_torch.models import grasp_training as GT
+
+    m = copy.deepcopy(base).to(device=dev, dtype=dtype)
+    state = GT.create_grasp_train_state(m)
+    i, lab = _moved(inputs, dev, dtype), _moved(labels, dev, dtype)
+    with relu_sides(None, take) as sides:
+        if name == "goal_1_view":
+            metrics, grads = GT.grasp_gradients(state, i, lab,
+                                                "kl_divergence")
+        else:
+            metrics, grads = GT.delta_ngf_gradients(state, i, lab)
+    return ({k: float(v) for k, v in metrics.items()},
+            torch.cat([g.detach().reshape(-1).double().cpu() for g in grads]),
+            sides.sides)
+
+
+def check_grasp_train_on_cpu(dev, card, data_dir):
+    """One goal step (kl_divergence, mean) and one delta-NGF step
+    (dngf_1_view: cross-entropy, quaternions) of one sample with 64
+    landscape (and 64 gradient) poses at full width, on the card against
+    the same model on the CPU, from the same seeded weights and batch. f64
+    on both sides: the metrics and the readout's gradients before clipping
+    within 1e-8 relative (of max |cpu| for the gradients). f32: at most
+    1e-5 of the relu inputs on the other side of 0 on card and CPU; the
+    metrics within 1e-4 relative of the CPU run made to take the card's
+    relu branches (the delta-NGF losses are functions of the pose
+    gradient, which jumps where a relu input changes side: ROADMAP Queue
+    C) and within 1e-3 relative of the CPU's own run; and of the gradients
+    against the CPU's own branches, fewer than 1% of the entries beyond
+    1e-3 x max |cpu| and the median error below 1e-4 x max |cpu| (the
+    count is printed)."""
+    import torch
+    from tcnerf_torch.data.generators import (DeltaNGFDataGenerator,
+                                              GraspMVNeRFDataGenerator)
+    from tcnerf_torch.data.loaders import load_dataset, load_dataset_baseline
+    from tcnerf_torch.train import config
+    from tcnerf_torch.train.grasp_common import build_grasp_model
+
+    cpu = torch.device("cpu")
+    for name in ("goal_1_view", "dngf_1_view"):
+        cfg = config.load_config([], name)
+        ws = cfg.generator_grasp.workspace_bounds
+        if name == "goal_1_view":
+            gen = GraspMVNeRFDataGenerator(
+                load_dataset_baseline(str(data_dir / "goal"), 5, "train"),
+                ws, n_points_train=64, batch_size=1, n_r_fraction=32, rng=3)
+        else:
+            gen = DeltaNGFDataGenerator(
+                load_dataset(str(data_dir / "grad"), 5, True, True, "train"),
+                ws, batch_size=1, pose_augmentation_factor=16,
+                n_future_poses=4, rng=3)
+        batch = gen[0]
+        base = build_grasp_model(cfg, device=dev)
+        for dtype in (torch.float64, torch.float32):
+            f64 = dtype == torch.float64
+            mg, gg, sides = grasp_train_grads(base, name, *batch, dev, dtype)
+            mc, gc, own = grasp_train_grads(base, name, *batch, cpu, dtype)
+            if f64:
+                m64 = mg
+            held = mc
+            if not f64:
+                held = grasp_train_grads(base, name, *batch, cpu, dtype,
+                                         take=sides)[0]
+                flips = sum(int((a != b).sum()) for a, b in zip(sides, own))
+                total = sum(a.numel() for a in sides)
+                ok = flips <= 1e-5 * total
+                print(f"check grasp train {name} f32 relu inputs on the other"
+                      f" side of 0, card vs CPU: {flips} of {total} (limit "
+                      f"1e-5 of them) {'OK' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"grasp train {name}: the relus of "
+                                         "card and CPU took other branches")
+            tol = 1e-8 if f64 else 1e-4
+            for k, v in held.items():
+                rel = abs(mg[k] - v) / abs(v)
+                # f32, the CPU on its own branches: the cosine losses read
+                # the pose gradient, which jumps where a relu input changes
+                # side and is ill-conditioned in f32 (the port's f32 bar)
+                own_rel = 0.0 if f64 else abs(mg[k] - mc[k]) / abs(mc[k])
+                ok = rel <= tol and own_rel <= 1e-3
+                own_err = ("" if f64 else f"; the CPU on its own branches: "
+                           f"{mc[k]:.10g}, err {own_rel:.3g} relative (limit "
+                           f"1e-3); f32 from the f64 value: card "
+                           f"{abs(mg[k] - m64[k]) / abs(m64[k]):.3g}, CPU "
+                           f"{abs(mc[k] - m64[k]) / abs(m64[k]):.3g} "
+                           f"relative")
+                print(f"check grasp train {name} {str(dtype)[6:]} {k}, card "
+                      f"vs CPU{'' if f64 else ' on the card relu branches'}:"
+                      f" card {mg[k]:.10g} cpu {v:.10g} err {rel:.3g} "
+                      f"relative (limit {tol}){own_err} "
+                      f"{'OK' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"grasp train {name} {k}: card and "
+                                         "CPU disagree")
+            scale = float(gc.abs().max())
+            err = (gg - gc).abs()
+            if f64:
+                compare(f"grasp train {name} f64 readout gradients "
+                        f"({gc.numel()} entries), card vs CPU", gg, gc, 1e-8,
+                        "one sample, 64 landscape poses, before clipping")
+                continue
+            beyond = int((err > 1e-3 * scale).sum())
+            median = float(err.median()) / scale
+            ok = (bool(torch.isfinite(gg).all())
+                  and beyond < 0.01 * gc.numel() and median < 1e-4)
+            print(f"check grasp train {name} f32 readout gradients, card vs "
+                  f"CPU: {beyond} of {gc.numel()} entries beyond 1e-3 x "
+                  f"max|cpu| {scale:.6g} (limit 1%), max err "
+                  f"{float(err.max()):.6g}, median err {median:.3g} x "
+                  f"max|cpu| (limit 1e-4) {'OK' if ok else 'FAIL'} [{card}]")
+            if not ok:
+                raise AssertionError(f"grasp train {name} f32 gradients: card"
+                                     " and CPU disagree")
+        del base
+        torch.cuda.empty_cache()
+
+
+def phase_grasp_train(dev, card, launches):
+    """The four grasp trainers through their entry functions
+    (`tcnerf_torch.train.train_goal`, `train_delta_ngf`, `train_trajectory`,
+    `train_language`) at full width (ViT-B/16 224^2, n_features 256,
+    hidden 128, 6 blocks, 480x640, 7 5-d poses = 42 probes; the language
+    config adds the CLIP RN50 and text towers and the v4-elu decoder),
+    batch 8, seeded weights, on synthetic datasets (one per kind, shared by
+    the trainers that read it), cut to GRASP_TRAIN_CUT (2 steps, a
+    validation after each, and the warm-up) and for language_1_view to 5
+    perspectives. Per trainer: each step's metrics and host time, the
+    median step after the first, the peak memory, each validation's wall
+    and logged errors, every frozen parameter bit-identical to the seeded
+    one and the trainable ones moved, and no chain-kernel launch (K1, K1',
+    K2, K3 count 0), the host time of one batch's synthesis. A profiled
+    step of goal_1_view and of language_1_view; then one step of each kind
+    on the card against the CPU
+    (`check_grasp_train_on_cpu`)."""
+    import importlib
+    import shutil
+
+    import numpy as np
+    import torch
+    from tcnerf_torch.train import config
+    from tcnerf_torch.train.grasp_common import build_grasp_model
+
+    data_dir = REPO / "build" / "chip_smoke_grasp"
+    totals = {k: 0 for k in CHAIN_COUNTS}
+    for name, module, fn, fusion, kind in GRASP_TRAIN:
+        run = getattr(importlib.import_module(
+            f"tcnerf_torch.train.{module}"), fn)
+        model_path = data_dir / "models" / name
+        shutil.rmtree(model_path, ignore_errors=True)
+        cut = GRASP_TRAIN_CUT + GRASP_TRAIN_EXTRA.get(name, [])
+        cfg = config.load_config(
+            [f"dataset.path={data_dir / kind}",
+             f"grasp_training.model_path={model_path}", *cut], name)
+        gt, oc = cfg.grasp_training, cfg.validation.grasp_opt_config
+        rep = cfg.grasp_model.get("rotation_representation", "quaternion")
+        print(f"grasp train {name} ({module}): batch {gt.batch_size}, loss "
+              f"{gt.loss}, {rep}"
+              f", fusion {fusion}, full width, f32, seeded weights; "
+              f"validation {len(cfg.validation.valid_sample_indices)} samples"
+              f" x {oc.optimizer_config.n_initial_guesses} guesses x "
+              f"{oc.optimization_config.n_optimization_steps} steps, "
+              f"{oc.optimizer_config.n_images} images; cut: {cut}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        run_, wall = timed(lambda: run(cfg, device=dev))
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps, valid = run_.history["steps"], run_.history["valid"]
+        print(f"grasp train {name} run: {len(steps)} steps + {len(valid)} "
+              f"validations in {wall:.1f} s (dataset synthesis included); "
+              f"peak memory allocated {peak / 2 ** 30:.2f} GiB [{card}]")
+        for k, s in enumerate(steps):
+            metrics = ", ".join(f"{m} {v:.6f}" for m, v in s.items()
+                                if m not in ("data_s", "step_s"))
+            print(f"grasp train {name} step {k + 1}: {metrics}; "
+                  f"{s['step_s'] * 1e3:.1f} ms (waiting for the prefetched "
+                  f"batch {s['data_s'] * 1e3:.1f} ms) [{card}]")
+            if not all(np.isfinite(v) for v in s.values()):
+                raise AssertionError(f"{name}: step {k + 1} not finite")
+        if len(steps) != 2:
+            raise AssertionError(f"{name}: {len(steps)} steps, not 2")
+        steady = float(np.median([s["step_s"] for s in steps[1:]]))
+        print(f"grasp train {name} step after the first (median): "
+              f"{steady * 1e3:.1f} ms [{card}]")
+        for epoch, logged, seconds in valid:
+            errors = ("warm-up, one sample" if logged is None else
+                      f"mean_r_error_t {logged['mean_r_error_t']:.3f} mm, "
+                      f"mean_r_error_r {logged['mean_r_error_r']:.3f} deg, "
+                      f"best_r_error_mean_t "
+                      f"{logged['best_r_error_mean_t']:.3f} mm, "
+                      f"best_r_error_mean_r "
+                      f"{logged['best_r_error_mean_r']:.3f} deg")
+            print(f"grasp train {name} validation after epoch {epoch}: "
+                  f"{seconds * 1e3:.1f} ms wall; {errors} [{card}]")
+            if logged is not None and not np.isfinite(
+                    logged["mean_r_error_t"]):
+                raise AssertionError(f"{name}: validation errors not finite")
+        for k, key in CHAIN_COUNTS.items():
+            totals[k] += counts.get(key, 0)
+        state = run_.state
+        seeded = build_grasp_model(cfg, fusion=fusion, device=dev)
+        trained = set(state.names)
+        frozen_same = moved = 0
+        for (n, p), q in zip(state.model.named_parameters(),
+                             seeded.parameters()):
+            same = torch.equal(p.detach(), q.detach())
+            if n in trained:
+                moved += not same
+            elif not same or p.grad is not None:
+                raise AssertionError(f"{name}: frozen {n} changed")
+            else:
+                frozen_same += 1
+        print(f"check grasp train {name} frozen parameters: {frozen_same} "
+              f"tensors bit-identical to the seeded ones after {len(steps)} "
+              f"steps, without gradients; {moved} of {len(trained)} "
+              f"trainable tensors moved {'OK' if moved else 'FAIL'}")
+        if not moved:
+            raise AssertionError(f"{name}: the readout did not train")
+        del seeded
+        t0 = time.perf_counter()
+        inputs, labels = run_.data_generator[0]
+        print(f"grasp train {name}: one batch synthesized on the host "
+              f"without the prefetch thread in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
+        if name in ("goal_1_view", "language_1_view"):
+            batch = (_moved(inputs, dev), _moved(labels, dev))
+            print(f"grasp train {name} profiled step:")
+            device_time_by_kernel(lambda: run_.step(*batch), card, top=8)
+            del batch
+        del run_, state
+        torch.cuda.empty_cache()
+    for k, n in totals.items():
+        launches[f"{k} grasp_train"] = n
+    print(f"grasp train launches of the chain kernels on the trainers' path: "
+          f"{totals} (GraspEBM's embedding emits every activation, "
+          f"complete_output, which no chain kernel does) "
+          f"{'OK' if not any(totals.values()) else 'FAIL'}")
+    if any(totals.values()):
+        raise AssertionError("a chain kernel launched on the grasp trainers' "
+                             "path")
+    check_grasp_train_on_cpu(dev, card, data_dir)
+
+
 KERNELS = {
     "K1": dict(name="resmlp_rows", source="tcnerf_torch/csrc/resmlp.cu",
                replaces="tcnerf/ops/pallas/resmlp.py:137",
@@ -1621,6 +1909,7 @@ def main(argv) -> int:
     phase_train_fused(dev, card, launches)
     phase_grasp(dev, card)
     phase_grasp_language(dev, card)
+    phase_grasp_train(dev, card, launches)
     rows = []
     for k, r in kres.items():          # K1-K3, then K4-K13 from the tools
         meta = KERNELS.get(k, r)

@@ -3,6 +3,11 @@
     root/
       color/          sample_00000000.npz  ('colors': [P, H, W, 4] uint8)
       camera_config/  sample_00000000.pkl  (list of {'pose', 'intrinsics'})
+      grasp_pose/     sample_00000000.npz  (4x4) or .pkl ({'grasp_pose'})
+      trajectory/     sample_00000000.pkl  (list of 4x4, or {'trajectory'})
+      language/       sample_00000000.pkl  (str)
+      info/           sample_00000000.pkl  (dict)
+      order/          sample_00000000.npz  (the trajectory's length)
 
 `SynchronizedDatasets` holds named sub-datasets read by one sample index.
 All reads are host-side numpy.
@@ -81,6 +86,35 @@ class PickleDataset(_FileDataset):
         os.makedirs(directory, exist_ok=True)
         with open(_sample_file(directory, idx, "pkl"), "wb") as f:
             pickle.dump(value, f)
+
+
+class MNPZDataset:
+    """One monolithic npz: each key holds an array stacked over samples,
+    memory-mapped. `key` picks one array; without it a sample is a dict of
+    every key's row."""
+
+    def __init__(self, path: str, key: Optional[str] = None):
+        self.path = path
+        self.key = key
+        self._z = np.load(path, mmap_mode="r", allow_pickle=False)
+        first = self.key or list(self._z.keys())[0]
+        self._len = self._z[first].shape[0]
+
+    def __len__(self):
+        return self._len
+
+    def read_sample(self, idx: int):
+        if self.key is not None:
+            return self._z[self.key][idx]
+        return {k: self._z[k][idx] for k in self._z.keys()}
+
+    def read_sample_at_idx(self, idx: int, sub_idx: int):
+        return self.read_sample(idx)[sub_idx]
+
+    @staticmethod
+    def write(path: str, arrays: Dict[str, np.ndarray]) -> None:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        np.savez(path, **arrays)
 
 
 class ColorDataset(NPZDataset):

@@ -1,9 +1,10 @@
-"""Synthetic tabletop scenes and camera rings, the NeRF part of
-tcnerf/data/synthetic.py: coloured spheres on a checkered ground plane,
-ray-traced exactly with Lambertian shading (host-side numpy), rendered from
-a ring of cameras in the `{'pose': 4x4, 'intrinsics': 9-flat}` format the
-data layer reads. The same seed writes the same colour and camera files as
-the JAX package.
+"""Synthetic tabletop scenes and camera rings (tcnerf/data/synthetic.py):
+coloured spheres on a checkered ground plane, ray-traced exactly with
+Lambertian shading (host-side numpy), rendered from a ring of cameras in the
+`{'pose': 4x4, 'intrinsics': 9-flat}` format the data layer reads, with a
+top-down grasp pose above a target sphere, its approach trajectory, a
+language instruction naming the sphere's colour and the scene's info. The
+same seed writes the same files as the JAX package.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..core.rays import get_rays_np
-from .dataset import ColorDataset, PickleDataset
+from .dataset import ColorDataset, NPZDataset, PickleDataset
 
 
 @dataclass
@@ -42,6 +43,14 @@ class SyntheticScene:
         centers = np.stack([xs, ys, radii], axis=-1)  # resting on the plane
         colors = rng.uniform(0.2, 1.0, size=(n_spheres, 3))
         return cls(centers=centers, radii=radii, colors=colors)
+
+    def grasp_pose(self, idx: int = 0) -> np.ndarray:
+        """Top-down grasp above sphere `idx`: the gripper's z points down at
+        the sphere's top."""
+        m = np.eye(4)
+        m[:3, :3] = np.diag([1.0, -1.0, -1.0])
+        m[:3, 3] = self.centers[idx] + np.array([0.0, 0.0, self.radii[idx]])
+        return m
 
     def trace(self, rays_o: np.ndarray, rays_d: np.ndarray):
         """Intersect rays [..., 3] with the scene. Returns (rgb [..., 3] in
@@ -155,10 +164,44 @@ def generate_views(scene: SyntheticScene, n_perspectives: int,
     return colors, configs
 
 
+_COLOR_NAMES = {
+    "red": (1.0, 0.2, 0.2), "green": (0.2, 1.0, 0.2), "blue": (0.2, 0.3, 1.0),
+    "yellow": (1.0, 1.0, 0.2), "purple": (0.8, 0.2, 1.0),
+    "cyan": (0.2, 1.0, 1.0), "orange": (1.0, 0.6, 0.1),
+    "white": (1.0, 1.0, 1.0),
+}
+
+
+def color_name(rgb) -> str:
+    """The nearest named colour (euclidean in RGB)."""
+    names = list(_COLOR_NAMES)
+    dists = [np.linalg.norm(np.asarray(rgb) - np.asarray(_COLOR_NAMES[n]))
+             for n in names]
+    return names[int(np.argmin(dists))]
+
+
+def grasp_trajectory(grasp_pose_m: np.ndarray, n_poses: int = 10,
+                     approach_height: float = 0.2) -> list:
+    """A linear top-down approach of `n_poses` poses ending at the grasp
+    pose (a descent along world z)."""
+    poses = []
+    for k in range(n_poses):
+        frac = k / (n_poses - 1)
+        m = grasp_pose_m.copy()
+        m[2, 3] = grasp_pose_m[2, 3] + (1.0 - frac) * approach_height
+        poses.append(m)
+    return poses
+
+
 def write_synthetic_dataset(root: str, n_samples: int, n_perspectives: int,
                             height: int = 480, width: int = 640, rng=0,
-                            n_spheres: int = 4, **ring_kwargs) -> str:
-    """Write `n_samples` scenes' colour and camera files under `root`."""
+                            dict_records: bool = False, n_spheres: int = 4,
+                            record_order: bool = False, **ring_kwargs) -> str:
+    """Write `n_samples` scenes under `root`: colour, camera_config,
+    grasp_pose, trajectory, language and info records, and with
+    `record_order` the trajectory's length. `dict_records` writes the grasp
+    pose and the trajectory as dict records (the language datasets'
+    flavour), otherwise as a bare array (npz) and list (pickle)."""
     rng = (np.random.default_rng(rng)
            if not isinstance(rng, np.random.Generator) else rng)
     os.makedirs(root, exist_ok=True)
@@ -166,10 +209,32 @@ def write_synthetic_dataset(root: str, n_samples: int, n_perspectives: int,
         scene = SyntheticScene.random(rng, n_spheres=n_spheres)
         colors, configs = generate_views(scene, n_perspectives, height=height,
                                          width=width, **ring_kwargs)
-        # the JAX writer draws each scene's grasp target here; drawing it too
-        # keeps the two packages' scenes equal for one seed
-        rng.integers(n_spheres)
-        ColorDataset.write_sample(os.path.join(root, "color"), i, colors)
-        PickleDataset.write_sample(os.path.join(root, "camera_config"), i,
-                                   configs)
+        target = int(rng.integers(n_spheres))
+        grasp_m = scene.grasp_pose(target)
+        traj = grasp_trajectory(grasp_m)
+        lang = f"grasp the {color_name(scene.colors[target])} ball"
+        info = {
+            f"sphere_{k}": {
+                "position": scene.centers[k].tolist(),
+                "radius": float(scene.radii[k]),
+                "color": scene.colors[k].tolist(),
+                "is_target": bool(k == target),
+            } for k in range(n_spheres)
+        }
+
+        def write(dataset, key, value):
+            dataset.write_sample(os.path.join(root, key), i, value)
+
+        write(ColorDataset, "color", colors)
+        write(PickleDataset, "camera_config", configs)
+        if dict_records:
+            write(PickleDataset, "grasp_pose", {"grasp_pose": grasp_m})
+            write(PickleDataset, "trajectory", {"trajectory": traj})
+        else:
+            write(NPZDataset, "grasp_pose", grasp_m)
+            write(PickleDataset, "trajectory", traj)
+        write(PickleDataset, "language", lang)
+        write(PickleDataset, "info", info)
+        if record_order:
+            write(NPZDataset, "order", np.asarray(len(traj)))
     return root

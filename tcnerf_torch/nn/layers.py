@@ -142,17 +142,18 @@ _KERNELS = {"bilinear": _triangle, "cubic": _keys_cubic}
 
 
 def resize_weights(in_size: int, out_size: int, device=None,
-                   method: str = "bilinear") -> torch.Tensor:
+                   method: str = "bilinear",
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[in, out] weights of jax.image.resize(method=...) along one axis
     ("bilinear": triangle kernel, "cubic": Keys cubic, a = -0.5):
     half-pixel centres, the kernel widened by in/out when it shrinks
-    (antialias), weights renormalised over in-range samples, all in f32
-    as jax/_src/image/scale.py compute_weight_mat computes them."""
-    f32 = torch.float32                 # jax's weak-typed scale: f32
-    inv_scale = 1.0 / torch.tensor(out_size / in_size, dtype=f32)
+    (antialias), weights renormalised over in-range samples, all in
+    `dtype` as jax/_src/image/scale.py compute_weight_mat computes them
+    (jax's weak-typed scale: f32, f64 under jax_enable_x64)."""
+    inv_scale = 1.0 / torch.tensor(out_size / in_size, dtype=dtype)
     kernel_scale = torch.clamp(inv_scale, min=1.0)
-    sample = (torch.arange(out_size, dtype=f32) + 0.5) * inv_scale - 0.5
-    dist = (sample[None, :] - torch.arange(in_size, dtype=f32)[:, None]
+    sample = (torch.arange(out_size, dtype=dtype) + 0.5) * inv_scale - 0.5
+    dist = (sample[None, :] - torch.arange(in_size, dtype=dtype)[:, None]
             ).abs() / kernel_scale
     w = _KERNELS[method](dist)
     total = w.sum(dim=0, keepdim=True)
@@ -168,13 +169,15 @@ def resize(x: torch.Tensor, size: Tuple[int, int],
            method: str = "bilinear") -> torch.Tensor:
     """jax.image.resize(x, (B, *size, C), method) for [B, H, W, C], as
     separable weight-matrix products (fp32, core/prec.py); an axis whose
-    size does not change is left as is, as jax.image.resize leaves it."""
+    size does not change is left as is, as jax.image.resize leaves it. The
+    weights are f32, or f64 for f64 inputs (as JAX under x64 makes them)."""
     b, h, w, c = x.shape
+    wdt = torch.float64 if x.dtype == torch.float64 else torch.float32
     if h != size[0]:
-        wh = resize_weights(h, size[0], x.device, method).to(x.dtype)
+        wh = resize_weights(h, size[0], x.device, method, wdt).to(x.dtype)
         x = torch.einsum("bhwc,ho->bowc", x, wh)
     if w != size[1]:
-        ww = resize_weights(w, size[1], x.device, method).to(x.dtype)
+        ww = resize_weights(w, size[1], x.device, method, wdt).to(x.dtype)
         x = torch.einsum("bowc,wp->bopc", x, ww)
     return x
 

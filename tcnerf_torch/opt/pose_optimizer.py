@@ -50,10 +50,10 @@ class AdamState:
         return cls(0, torch.zeros_like(p), torch.zeros_like(p))
 
 
-def adam_update(g: torch.Tensor, state: AdamState, lr: float
-                ) -> Tuple[torch.Tensor, AdamState]:
-    """optax.adam's update of gradient `g` at learning rate `lr` (the
-    schedule at `state.count`); returns (update, next state)."""
+def adam_direction(g: torch.Tensor, state: AdamState
+                   ) -> Tuple[torch.Tensor, AdamState]:
+    """optax `scale_by_adam` of gradient `g`: the bias-corrected
+    mu_hat / (sqrt(nu_hat) + eps), and the next state."""
     mu = (1 - B1) * g + B1 * state.mu
     nu = (1 - B2) * (g * g) + B2 * state.nu
     count = state.count + 1
@@ -64,9 +64,16 @@ def adam_update(g: torch.Tensor, state: AdamState, lr: float
 
     mu_hat = mu / correction(B1)
     nu_hat = nu / correction(B2)
+    return mu_hat / (torch.sqrt(nu_hat) + EPS), AdamState(count, mu, nu)
+
+
+def adam_update(g: torch.Tensor, state: AdamState, lr: float
+                ) -> Tuple[torch.Tensor, AdamState]:
+    """optax.adam's update of gradient `g` at learning rate `lr` (the
+    schedule at `state.count`); returns (update, next state)."""
+    direction, state = adam_direction(g, state)
     # the schedule's rate is float32 (schedules.py), as in the JAX package
-    update = -np.float32(lr) * (mu_hat / (torch.sqrt(nu_hat) + EPS))
-    return update, AdamState(count, mu, nu)
+    return -np.float32(lr) * direction, state
 
 
 @dataclass

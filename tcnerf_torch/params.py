@@ -31,8 +31,8 @@ import torch
 _OUT_PROJECTIONS = ("attn_out", "out")
 
 
-def _convert(path, name: str, value: np.ndarray) -> tuple:
-    a = np.asarray(value, dtype=np.float32)
+def _convert(path, name: str, value: np.ndarray, dtype=np.float32) -> tuple:
+    a = np.asarray(value, dtype=dtype)
     module = path[-1] if path else ""
     if name == "kernel":
         if a.ndim == 2:                       # Dense
@@ -52,11 +52,12 @@ def _convert(path, name: str, value: np.ndarray) -> tuple:
         a = a.reshape(-1)
     elif name == "embedding":                 # nn.Embed
         name = "weight"
-    return name, torch.from_numpy(np.array(a, dtype=np.float32))  # copy
+    return name, torch.from_numpy(np.array(a, dtype=dtype))  # copy
 
 
-def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """flax params tree (nested dicts of numpy arrays) -> port state_dict."""
+def from_flax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """flax params tree (nested dicts of numpy arrays) -> port state_dict
+    (in `dtype`: float32, or float64 to carry f64 trees and gradients)."""
     out = {}
 
     def walk(node, path):
@@ -64,7 +65,7 @@ def from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 walk(value, path + [key])
             else:
-                name, t = _convert(path, key, value)
+                name, t = _convert(path, key, value, dtype)
                 out[".".join(path + [name])] = t
 
     walk(tree, [])

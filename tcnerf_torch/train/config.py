@@ -1,6 +1,7 @@
 """The entry points' configurations: the composed configs of tcnerf/configs
 that the port runs (`CONFIGS`: the stage-1 `nerf_1_view_wo`, `nerf_1_view`,
 `nerf_3_view`, `nerf_1_view_v4_elu` and the grasp `goal_1_view`,
+`dngf_1_view`, `trajectory_1_view-1`, `trajectory_1_view-2`,
 `language_1_view`) as Python dicts, dotted `key=value` overrides and
 `${a.b}` interpolation, as tcnerf/train/config.py composes them from YAML
 (this package reads no YAML: the card's machine has no PyYAML).
@@ -51,7 +52,7 @@ _NERF_TRAINING = {"n_epochs": 1600, "eval_after_epochs": 16}
 _WORKSPACE = {"workspace_bounds": [[0.35, 0.85], [-0.25, 0.25], [0.0, 0.2]]}
 _GRASP_TRAINING = {"n_epochs": 400, "eval_after_epochs": 4,
                    "learning_rate": 0.0001, "batch_size": 8}
-_VALIDATION_3_IMAGES = {
+_VALIDATION = {
     "oracle": {"oracle_type": "suction_grasp-oracle",
                "gripper_offset": {"rotation": [3.14159265359, 0.0,
                                                1.57079632679]}},
@@ -65,13 +66,19 @@ _VALIDATION_3_IMAGES = {
     "disp": False,
     "shared_memory": False,
     "task": "picking-seen-google-objects-seq",
-    "grasp_opt_config": {
-        "optimizer_config": {"n_initial_guesses": 4096, "n_images": 3,
-                             "clip_translation": True},
-        "optimization_config": {"n_optimization_steps": 16,
-                                "init_lr_t": 0.05, "init_lr_r": 0.05,
-                                "decay_t": 0.9, "decay_r": 0.09}},
 }
+_VALIDATION_3_IMAGES = _merge(_VALIDATION, {"grasp_opt_config": {
+    "optimizer_config": {"n_initial_guesses": 4096, "n_images": 3,
+                         "clip_translation": True},
+    "optimization_config": {"n_optimization_steps": 16, "init_lr_t": 0.05,
+                            "init_lr_r": 0.05, "decay_t": 0.9,
+                            "decay_r": 0.09}}})
+_VALIDATION_2_IMAGES = _merge(_VALIDATION, {"grasp_opt_config": {
+    "optimizer_config": {"n_initial_guesses": 4096, "n_images": 2,
+                         "clip_translation": True},
+    "optimization_config": {"n_optimization_steps": 19, "init_lr_t": 0.01776,
+                            "init_lr_r": 0.661, "decay_t": 0.8408,
+                            "decay_r": 0.8262}}})
 
 
 def _nerf(n_views: int, training: Dict, model: Dict = None) -> Dict:
@@ -108,6 +115,35 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
             "backbone_path": _models_path("nerf/simple/1_view"),
             "loss": "kl_divergence", "readout_flavor": "goal"}),
         "validation": _VALIDATION_3_IMAGES}),
+    "dngf_1_view": _merge(_DEFAULT, {
+        "dataset": {"path": "${data_dir}/storage/data/grasp_baseline_grad/"
+                            "simple",
+                    "n_perspectives": 5, "record_grasp_pose": True,
+                    "record_order": True},
+        "nerf_model": _merge(_NERF_MODEL, {"n_views": 1}),
+        "grasp_model": {"n_5d_poses": 7,
+                        "rotation_representation": "quaternion"},
+        "generator_grasp": _merge(_WORKSPACE, {"pose_augmentation_factor": 16,
+                                               "n_future_poses": 4}),
+        "grasp_training": _merge(_GRASP_TRAINING, {
+            "model_path": _models_path("grasp/dngf/1_view"),
+            "backbone_path": _models_path("nerf/simple/1_view"),
+            "loss": "cross_entropy", "readout_bias": True}),
+        "validation": _VALIDATION_2_IMAGES}),
+    **{f"trajectory_1_view-{k}": _merge(_DEFAULT, {
+        "dataset": {"path": "${data_dir}/storage/data/trajectory/simple",
+                    "n_perspectives": 5},
+        "generator_grasp": _merge(_WORKSPACE, {"pose_augmentation_factor": 32,
+                                               "n_future_poses": 6}),
+        "nerf_model": _merge(_NERF_MODEL, {"n_views": 1}),
+        "grasp_training": _merge(_GRASP_TRAINING, {
+            "model_path": _models_path("grasp/simple/" + tail),
+            "backbone_path": _models_path("nerf/simple/1_view"),
+            "loss": "kl_divergence", "readout_bias": True}),
+        "validation": _VALIDATION_3_IMAGES,
+        "grasp_model": {"n_5d_poses": 7, "rotation_representation": rep}})
+       for k, tail, rep in ((1, "trajectory_1_view", "6d"),
+                            (2, "trajectory_1_view-2", "quaternion"))},
     "language_1_view": _merge(_DEFAULT, {
         "dataset": {"path": "${data_dir}/storage/data/language/simple",
                     "n_perspectives": 50},
@@ -145,6 +181,16 @@ class Config(dict):
         if isinstance(obj, list):
             return [Config.wrap(v) for v in obj]
         return obj
+
+    def to_dict(self) -> Dict:
+        """A plain dict (and lists) copy."""
+        def unwrap(o):
+            if isinstance(o, dict):
+                return {k: unwrap(v) for k, v in o.items()}
+            if isinstance(o, list):
+                return [unwrap(v) for v in o]
+            return o
+        return unwrap(self)
 
 
 def parse_value(text: str) -> Any:

@@ -1,16 +1,36 @@
 """The grasp entry points' shared parts (tcnerf/train/grasp_common.py):
-`build_grasp_model`. The oracle and validation loops wait for the grasp
-data generators and task plugins (ROADMAP Queue A item 2.4)."""
+the model, its train state, the backbone and resume guards, the pose
+optimizer of the validation, and the validation samples with their
+features. Validation scores poses with `tasks.agents.OracleAgent`; the task
+plugins and `build_oracle` are not ported.
+
+Checkpoints are not read yet (ROADMAP Queue A item 4). A run without a
+backbone checkpoint keeps the seeded weights, as the JAX package does (and
+raises under `grasp_training.require_backbone`); where component files of
+a checkpoint exist, `load_backbone` and `resume_or_init` raise instead of
+training seeded weights beside them.
+"""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import glob
+import logging
+import os
+import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
+from ..data.prefetch import prefetched_epochs
 from ..device import resolve_device
+from ..models import grasp_training as GT
 from ..models.grasp import GraspEBM
+from ..opt.pose_optimizer import PoseOptimizer
 from ..params import init_params
+from .session import get_inputs
+
+log = logging.getLogger("tcnerf_torch.train")
 
 
 def build_grasp_model(cfg, fusion: Optional[str] = None,
@@ -65,3 +85,177 @@ def build_grasp_model(cfg, fusion: Optional[str] = None,
     init_params(model, torch.Generator(device=dev).manual_seed(
         cfg.get("seed", 0)))
     return model
+
+
+def init_grasp_state(model: GraspEBM, cfg, trainable=("grasp_readout",)
+                     ) -> GT.GraspTrainState:
+    """The train state of a built (seeded) model: `trainable` components
+    train at `grasp_training.learning_rate`, the rest is frozen."""
+    return GT.create_grasp_train_state(
+        model, learning_rate=cfg.grasp_training.learning_rate,
+        trainable=trainable)
+
+
+def _component_files(path: str):
+    """The files of a component checkpoint at `path` (`<path>_<component>`
+    in flax msgpack or as a TF tensor bundle)."""
+    return sorted(f for suffix in (".msgpack", ".index")
+                  for f in glob.glob(glob.escape(path) + "_*" + suffix))
+
+
+def _refuse_checkpoint(path: str, what: str) -> None:
+    files = _component_files(path)
+    if files:
+        raise NotImplementedError(
+            f"{what} checkpoint at {path} ({len(files)} component files, "
+            f"e.g. {os.path.basename(files[0])}): reading it waits for "
+            "checkpoint interop (ROADMAP Queue A item 4); the port does not "
+            "train seeded weights beside it")
+
+
+def load_backbone(model: GraspEBM, cfg, fusion: bool = False):
+    """The stage-1 backbone (and under `fusion` its decoder) at
+    `<backbone_path>/model_final`. Without one the seeded weights stay
+    (with a warning), unless `grasp_training.require_backbone` asks for
+    the JAX package's FileNotFoundError. Returns (model, loaded)."""
+    backbone = os.path.join(cfg.grasp_training.backbone_path, "model_final")
+    _refuse_checkpoint(backbone, "backbone")
+    if cfg.grasp_training.get("require_backbone", False):
+        raise FileNotFoundError(
+            f"Backbone not found at {backbone} and "
+            "grasp_training.require_backbone=true")
+    log.warning("Backbone not found at %s; using the seeded backbone%s.",
+                backbone, " and fusion decoder" if fusion else "")
+    return model, False
+
+
+def resume_or_init(model: GraspEBM, cfg) -> GraspEBM:
+    """A fresh model: raises where `<model_path>/model_final` has component
+    files or `training_progress.json` records an earlier run, whose
+    weights the port cannot read yet (the session would otherwise resume
+    its epoch count with seeded weights)."""
+    model_path = cfg.grasp_training.model_path
+    _refuse_checkpoint(os.path.join(model_path, "model_final"), "grasp model")
+    progress = os.path.join(model_path, "training_progress.json")
+    if os.path.exists(progress):
+        raise NotImplementedError(
+            f"{progress} records an earlier run whose weights the port "
+            "cannot read (ROADMAP Queue A item 4); use a fresh "
+            "grasp_training.model_path")
+    log.info("New model initialized (seeded weights)")
+    return model
+
+
+def build_pose_optimizer(model: GraspEBM, cfg) -> PoseOptimizer:
+    """The validation's pose optimizer from `validation.grasp_opt_config.
+    optimizer_config`, on the trained model itself."""
+    oc = cfg.validation.grasp_opt_config.optimizer_config
+    return PoseOptimizer(
+        model=model,
+        workspace_bounds=[list(b) for b in
+                          cfg.generator_grasp.workspace_bounds],
+        n_initial_guesses=oc.n_initial_guesses, n_images=oc.n_images,
+        n_views=cfg.nerf_model.n_views,
+        rotation_representation=cfg.grasp_model.get("rotation_representation",
+                                                    "quaternion"),
+        clip_translation=oc.get("clip_translation", False))
+
+
+def make_compute_features(model: GraspEBM):
+    """compute(observations [1, n, H, W, 3], tokens or None) -> the
+    model's features on the host (numpy), without autograd."""
+    def compute(observations, tokens):
+        dev = next(model.parameters()).device
+        images = torch.as_tensor(np.asarray(observations, np.float32),
+                                 device=dev)
+        tok = None if tokens is None else torch.as_tensor(
+            np.asarray(tokens, np.int64), device=dev)
+        with torch.no_grad():
+            return model.compute_features(images, tok).cpu().numpy()
+
+    return compute
+
+
+def collect_valid_data(valid_dataset, cfg, model: GraspEBM, tokenize_fn=None,
+                       defer_features: bool = False):
+    """The validation samples of `validation.valid_sample_indices`, each
+    (input_data, features on the host, task info, true grasp pose). With
+    `defer_features` only the first sample (the warm-up's) gets features
+    now; the session's `refresh_valid_fn` fills the rest."""
+    n_images = int(cfg.validation.grasp_opt_config.optimizer_config.n_images)
+    fn = make_compute_features(model)
+    out = []
+    for k, i in enumerate(cfg.validation.valid_sample_indices):
+        feat_fn = fn if (k == 0 or not defer_features) else (
+            lambda obs, tok: None)
+        out.append(get_inputs(valid_dataset, i, n_images, feat_fn,
+                              tokenize_fn))
+    return out
+
+
+class GraspRun(NamedTuple):
+    """What a grasp trainer returns: its train state, its history (per
+    step its metrics and host seconds, `data_s` waiting for the batch and
+    `step_s` the whole step until its metrics reached the host; per
+    validation its epoch, logged errors and seconds), its data generator
+    and its `step(inputs, labels) -> metrics`, the one the session loop
+    took."""
+    state: GT.GraspTrainState
+    history: Dict[str, List]
+    data_generator: Any
+    step: Callable
+
+
+def make_fit_epochs(step: Callable, data_generator, device: torch.device,
+                    history: Dict[str, List]) -> Callable[[int, int], None]:
+    """fit(initial_epoch, end_epoch) for the session loop: the epochs'
+    batches through `prefetched_epochs` onto `device`, each taken by
+    `step(inputs, labels) -> metrics`, whose values are read on the host
+    (which ends the step's clock) and kept in `history["steps"]`."""
+    def fit(i_epoch: int, e_epoch: int) -> None:
+        batches = iter(prefetched_epochs(data_generator, e_epoch - i_epoch,
+                                         device))
+        values: Dict[str, float] = {}
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            t_data = time.perf_counter() - t0
+            values = {k: float(v) for k, v in step(*batch).items()}
+            history["steps"].append(dict(
+                values, data_s=t_data, step_s=time.perf_counter() - t0))
+        log.info("epoch %d: %s", e_epoch,
+                 " ".join(f"{k}={v:.5f}" for k, v in values.items()))
+
+    return fit
+
+
+def prepare_datasets(cfg, kind: str) -> None:
+    """Synthesize the `train` (`dataset.n_synthetic_samples`, default 8,
+    seed 0) and `valid` (8, seed 1) datasets of `kind` under
+    `dataset.path` where none are, as the JAX entry points do."""
+    from ..data.loaders import ensure_dataset
+    for split, n, seed in (("train",
+                            cfg.dataset.get("n_synthetic_samples", 8), 0),
+                           ("valid", 8, 1)):
+        ensure_dataset(os.path.join(cfg.dataset.path, split),
+                       cfg.dataset.n_perspectives, kind,
+                       image_size=tuple(cfg.nerf_model.original_image_size),
+                       n_samples=n, rng=seed,
+                       n_spheres=cfg.dataset.get("n_spheres", 4),
+                       azimuth_span_deg=cfg.dataset.get("azimuth_span_deg"))
+
+
+def entry(argv: Optional[List[str]], config_name: str, run: Callable):
+    """A trainer's CLI: `--config-name=` and overrides from `argv`
+    (default sys.argv), logging to stderr, then `run(cfg)` (on the card
+    unless `device=cpu` is among the overrides)."""
+    import sys
+
+    from .config import load_config, parse_argv
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    name, overrides = parse_argv(sys.argv[1:] if argv is None else argv,
+                                 config_name)
+    return run(load_config(overrides, name))

@@ -9,6 +9,8 @@ This file imports no JAX, so it also runs on a machine without it:
 (`--noconftest` because tests/conftest.py sets up JAX).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -702,3 +704,106 @@ def test_fused_train_step_on_card_keeps_the_tower_frozen(cuda):
     assert any(not torch.equal(p.detach(), before[n])
                for n, p in m.named_parameters()
                if training.param_group(n) == "nerf")
+
+
+# ------------------------------------------------------------ grasp training
+
+def _grasp_train_batch(rng, b=1, n=8):
+    """A goal batch and a delta-NGF batch (quaternions) for the tiny model:
+    (poses, images, intrinsics, extrinsics_inv), one-hot labels; then
+    (l_t, l_r, g_t, g_r, images, intrinsics, extrinsics_inv) and
+    (one-hot, delta_t, delta_r), numpy f64."""
+    from tcnerf_torch.core import se3
+    images, intr, ext = _grasp_inputs()
+    images, intr, ext = images[:, :1], intr[:, :1], ext[:, :1]
+    lo, hi = np.array([0.35, -0.25, 0.0]), np.array([0.85, 0.25, 0.2])
+
+    def poses(k):
+        return (rng.uniform(lo, hi, (b, k, 3)), rng.normal(size=(b, k, 4)))
+
+    one_hot = np.zeros((b, n))
+    one_hot[:, 0] = 1
+    t, r = poses(n)
+    mats = se3.pose_to_matrix(torch.as_tensor(t), torch.as_tensor(r)).numpy()
+    goal = ([mats, images, intr, ext], one_hot)
+    l_t, l_r = poses(n)
+    g_t, g_r = poses(n)
+    delta = ([l_t, l_r, g_t, g_r, images, intr, ext],
+             [one_hot, rng.normal(size=g_t.shape) * 0.01,
+              rng.normal(size=g_r.shape) * 0.1])
+    return goal, delta
+
+
+def _grasp_step_grads(model, kind, batch, dev, dtype):
+    """The step's metrics and its readout gradients (flat, f64 on the
+    CPU)."""
+    from tcnerf_torch.models import grasp_training as GT
+    m = model.to(device=dev, dtype=dtype)
+    state = GT.create_grasp_train_state(m)
+    inputs = [torch.as_tensor(x, dtype=dtype, device=dev) for x in batch[0]]
+    if kind == "goal":
+        labels = torch.as_tensor(batch[1], dtype=dtype, device=dev)
+        metrics, grads = GT.grasp_gradients(state, inputs, labels,
+                                            "kl_divergence")
+    else:
+        labels = [torch.as_tensor(x, dtype=dtype, device=dev)
+                  for x in batch[1]]
+        metrics, grads = GT.delta_ngf_gradients(state, inputs, labels)
+    return ({k: float(v) for k, v in metrics.items()},
+            torch.cat([g.detach().reshape(-1).cpu().double() for g in grads]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["goal", "delta"])
+def test_grasp_train_step_on_card_matches_cpu(cuda, kind):
+    """One grasp_train_step / delta_ngf_train_step of the tiny model on the
+    card against the CPU: in f64 the metrics and the readout gradients
+    within 1e-8 relative. In f32 (TF32 off) the metrics within 1e-3
+    relative, the port's f32 bar: at this size the delta-NGF cosine losses
+    are ill-conditioned in f32 (the CPU's own f32 `grad_loss_r` is 3.9e-4
+    relative from its f64 one, on the same relu branches); and of the f32
+    gradients fewer than 1% of the entries beyond 1e-3 x max |cpu| and the
+    median error below 1e-4 x max |cpu|."""
+    import copy
+    from tcnerf_torch.core.prec import pin_fp32
+    pin_fp32()
+    goal, delta = _grasp_train_batch(np.random.default_rng(4))
+    batch = goal if kind == "goal" else delta
+    base = _tiny_grasp("cpu")
+    for dtype in (torch.float64, torch.float32):
+        (mg, gg), (mc, gc) = (_grasp_step_grads(copy.deepcopy(base), kind,
+                                                batch, dev, dtype)
+                              for dev in (cuda, "cpu"))
+        assert torch.isfinite(gg).all()
+        tol = 1e-8 if dtype == torch.float64 else 1e-3
+        for k, v in mc.items():
+            assert abs(mg[k] - v) <= tol * abs(v), (k, mg[k], v)
+        scale = float(gc.abs().max())
+        err = (gg - gc).abs()
+        if dtype == torch.float64:
+            assert float(err.max()) <= 1e-8 * scale
+        else:
+            assert float((err > 1e-3 * scale).double().mean()) < 0.01
+            assert float(err.median()) < 1e-4 * scale
+
+
+def test_grasp_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
+    """Each grasp trainer goes to the card: without CUDA it raises before
+    touching data, unless the caller passes device="cpu"."""
+    from tcnerf_torch.train import (config, train_delta_ngf, train_goal,
+                                    train_language, train_trajectory)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, run in (("goal_1_view", train_goal.run_goal_training),
+                      ("dngf_1_view", train_delta_ngf.run_delta_training),
+                      ("trajectory_1_view-2",
+                       train_trajectory.run_trajectory_training),
+                      ("language_1_view",
+                       train_language.run_language_training)):
+        cfg = config.load_config([f"data_dir={tmp_path}"], name)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run(cfg)
+        assert not os.path.exists(tmp_path / "storage")
+    for main in (train_goal.main, train_delta_ngf.main, train_trajectory.main,
+                 train_language.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main([f"data_dir={tmp_path}"])

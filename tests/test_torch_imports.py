@@ -48,6 +48,21 @@ def test_grasp_and_fused_training_modules_are_covered():
         assert name in MODULES, name
 
 
+def test_grasp_training_modules_are_covered():
+    """The grasp trainers' modules are among the files checked above."""
+    for name in ("tcnerf_torch.models.grasp_training",
+                 "tcnerf_torch.train.session",
+                 "tcnerf_torch.train.train_goal",
+                 "tcnerf_torch.train.train_delta_ngf",
+                 "tcnerf_torch.train.train_trajectory",
+                 "tcnerf_torch.train.train_language",
+                 "tcnerf_torch.tasks.agents",
+                 "tcnerf_torch.utils.wandb_compat",
+                 "tcnerf_torch.data.generators", "tcnerf_torch.data.loaders",
+                 "tcnerf_torch.data.dataset", "tcnerf_torch.data.synthetic"):
+        assert name in MODULES, name
+
+
 def test_every_module_imports_with_jax_blocked():
     """Every module of the port imports in a fresh interpreter in which
     JAX, flax, optax and the JAX package cannot be imported at all (not
