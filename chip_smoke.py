@@ -33,7 +33,13 @@ grasp entry points (`goal_1_view`, `dngf_1_view`, `trajectory_1_view-2`,
 `language_1_view`) at full width for 2 steps each on synthetic datasets,
 with their validations by pose ascent, the frozen parameters checked
 unchanged, no chain-kernel launch, a profiled step, and one step of each
-kind held against the CPU. The last line is
+kind held against the CPU. Last it joins the stages through checkpoint
+files (`phase_checkpoint`): a stage-1 run stored and resumed, a view
+served from its file, `train_goal` on that backbone and resumed,
+`GraspPipeline.from_checkpoints`, `train_language` on the v4-elu
+checkpoint and the TF bundle layout, each bit for bit, with every file's
+store and load times; all checkpoints go under one temporary directory
+outside the repository, removed at the end. The last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
 Imports torch and the port only.
 """
@@ -41,7 +47,9 @@ Imports torch and the port only.
 from __future__ import annotations
 
 import json
+import shutil
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -974,13 +982,14 @@ def compare_train_paths(kernel_model, plain_model, controls, batch, draws):
                                  " " + "; ".join(bad[:5]))
 
 
-def phase_train(dev, card, launches):
+def phase_train(dev, card, launches, root):
     """`train_nerf._main` (the port's trainer entry) at the full nerf_1_view_wo
     width (f32, pallas_mlp + remat, 4-tap gather) on a synthetic dataset
     (TRAIN_CUT): 4 steps and two validation renders with the counts set to 0
-    before and read after. Then one instrumented step (K1' launches in the
-    forward and in the backward's recompute), one profiled step, the
-    encoder's forward + backward alone, and the K1' vs plain-chain step."""
+    before and read after; its checkpoint goes under `root`. Then one
+    instrumented step (K1' launches in the forward and in the backward's
+    recompute), one profiled step, the encoder's forward + backward alone,
+    and the K1' vs plain-chain step."""
     import numpy as np
     import torch
     from tcnerf_torch.data.generators import MVNeRFDataGenerator, to_device
@@ -992,7 +1001,8 @@ def phase_train(dev, card, launches):
 
     kres = check_k1_diff(dev, card)
     data_dir = REPO / "build" / "chip_smoke_train"
-    cfg = config.load_config([f"data_dir={data_dir}", *TRAIN_CUT],
+    cfg = config.load_config([f"data_dir={data_dir}", *TRAIN_CUT,
+                              f"nerf_training.model_path={root / 'train'}"],
                              "nerf_1_view_wo")
     print(f"train: nerf_1_view_wo at full width (ViT-B/16 224^2, n_features "
           f"256, hidden 128, 6 blocks, 64+64 samples, 512 rays x batch 8, "
@@ -1164,7 +1174,7 @@ FUSED_COMMON = ["dataset.n_perspectives=4", "valid_sample_idx=0",
                 "valid_perspective_tgt_idx=2", "nerf_model.pallas_mlp=true"]
 
 
-def phase_train_fused(dev, card, launches):
+def phase_train_fused(dev, card, launches, root):
     """K1' at the fused paths' shapes (FUSED_K1_SHAPES), then
     `train_nerf._main` on each FUSED_TRAIN config at full width (f32,
     pallas_mlp + remat, 4-tap gather, the frozen CLIP RN50 tower, V0 or
@@ -1172,7 +1182,9 @@ def phase_train_fused(dev, card, launches):
     after: finite losses, the frozen tower's weights unchanged, the
     validation strips decode. Then per config one instrumented step (K1'
     launches), one instrumented validation render (K2 on 1 view, K1 on 3
-    views) and one profiled step."""
+    views) and one profiled step. Each run stores its checkpoint under
+    `root/<config>`; returns a CPU copy of the v4-elu run's final backbone
+    and decoder, which `phase_checkpoint` loads into the language stage."""
     import numpy as np
     import torch
     from tcnerf_torch.data.generators import MVNeRFDataGenerator, to_device
@@ -1182,9 +1194,11 @@ def phase_train_fused(dev, card, launches):
 
     check_k1_diff_at(dev, FUSED_K1_SHAPES)
     data_dir = REPO / "build" / "chip_smoke_train"
+    finals = {}
     for name, cut in FUSED_TRAIN:
-        cfg = config.load_config([f"data_dir={data_dir}", *FUSED_COMMON,
-                                  *cut], name)
+        cfg = config.load_config(
+            [f"data_dir={data_dir}", *FUSED_COMMON, *cut,
+             f"nerf_training.model_path={root / name}"], name)
         nm, nt = cfg.nerf_model, cfg.nerf_training
         print(f"train {name}: fusion {nt.fusion}, {nm.n_views} view(s), "
               f"batch {nt.batch_size} x {nm.n_rays_train} rays, full width "
@@ -1227,6 +1241,11 @@ def phase_train_fused(dev, card, launches):
                 raise AssertionError(f"{name}: validation PSNR not finite")
 
         model = state.model
+        if name == "nerf_1_view_v4_elu":
+            finals = {c: {k: v.detach().cpu().clone() for k, v in
+                          getattr(model, c).state_dict().items()}
+                      for c in ("fine_embedding", "visual_features",
+                                "combine_clip_visual")}
         fresh = train_nerf.build_model(cfg, dev)
         same = all(torch.equal(p, q) for (n, p), (_, q) in zip(
             model.named_parameters(), fresh.named_parameters())
@@ -1279,6 +1298,7 @@ def phase_train_fused(dev, card, launches):
         device_time_by_kernel(lambda: T.nerf_train_step(state, *batch, gen),
                               card, top=8)
         del state, model, batch, history
+    return finals
 
 
 def grasp_scene(n_images, seed):
@@ -1722,7 +1742,7 @@ def check_grasp_train_on_cpu(dev, card, data_dir):
         torch.cuda.empty_cache()
 
 
-def phase_grasp_train(dev, card, launches):
+def phase_grasp_train(dev, card, launches, root):
     """The four grasp trainers through their entry functions
     (`tcnerf_torch.train.train_goal`, `train_delta_ngf`, `train_trajectory`,
     `train_language`) at full width (ViT-B/16 224^2, n_features 256,
@@ -1738,9 +1758,9 @@ def phase_grasp_train(dev, card, launches):
     K2, K3 count 0), the host time of one batch's synthesis. A profiled
     step of goal_1_view and of language_1_view; then one step of each kind
     on the card against the CPU
-    (`check_grasp_train_on_cpu`)."""
+    (`check_grasp_train_on_cpu`). The trainers' checkpoints go under
+    `root`, with a backbone path where none is."""
     import importlib
-    import shutil
 
     import numpy as np
     import torch
@@ -1752,12 +1772,13 @@ def phase_grasp_train(dev, card, launches):
     for name, module, fn, fusion, kind in GRASP_TRAIN:
         run = getattr(importlib.import_module(
             f"tcnerf_torch.train.{module}"), fn)
-        model_path = data_dir / "models" / name
-        shutil.rmtree(model_path, ignore_errors=True)
+        model_path = root / "grasp_train" / name
         cut = GRASP_TRAIN_CUT + GRASP_TRAIN_EXTRA.get(name, [])
         cfg = config.load_config(
             [f"dataset.path={data_dir / kind}",
-             f"grasp_training.model_path={model_path}", *cut], name)
+             f"grasp_training.model_path={model_path}",
+             f"grasp_training.backbone_path={root / 'no_backbone'}", *cut],
+            name)
         gt, oc = cfg.grasp_training, cfg.validation.grasp_opt_config
         rep = cfg.grasp_model.get("rotation_representation", "quaternion")
         print(f"grasp train {name} ({module}): batch {gt.batch_size}, loss "
@@ -1849,6 +1870,405 @@ def phase_grasp_train(dev, card, launches):
     check_grasp_train_on_cpu(dev, card, data_dir)
 
 
+def _capture_log():
+    """Collect the trainers' log messages (`tcnerf_torch.train` at INFO);
+    returns (messages, stop)."""
+    import logging
+    messages = []
+    logger = logging.getLogger("tcnerf_torch.train")
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    handler, level = Keep(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+
+    def stop():
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    return messages, stop
+
+
+def _same_tensors(module, want, tag):
+    """Every tensor of `module` equals `want[name]` (a state_dict on any
+    device), bit for bit; raises otherwise."""
+    import torch
+    got = module.state_dict()
+    bad = [k for k in got if not torch.equal(got[k], want[k].to(
+        got[k].device))]
+    if set(got) != set(want) or bad:
+        raise AssertionError(f"{tag}: {len(bad)} tensors differ, e.g. "
+                             f"{bad[:3]}; keys equal {set(got) == set(want)}")
+    return len(got)
+
+
+def _wrapped(module, name, check):
+    """Replace module.name by a function that calls it, then
+    `check(result, *args)`; returns the undo."""
+    original = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        out = original(*args, **kw)
+        check(out, *args)
+        return out
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, original)
+
+
+def checkpoint_io(dev, card, model, path, components, fresh):
+    """Per component of `model`: store seconds, bytes, load seconds of the
+    file into `fresh` on the card (synchronized) and GB/s of the load;
+    every tensor loaded bit for bit. Then both split into their parts:
+    `to_flax` (the copy to the host and the layouts), `dumps`, the write;
+    the read and parse, `from_flax`, the copies onto the card."""
+    import os
+
+    import torch
+    from tcnerf_torch.models import checkpoint as ckpt
+    from tcnerf_torch.models import msgpack_codec
+    from tcnerf_torch.params import from_flax, to_flax
+
+    for c in components:
+        if not hasattr(model, c):
+            continue
+        file = ckpt.component_path(path, c)
+        _, t_store = timed(lambda: ckpt.store(path, model, (c,)))
+        size = os.path.getsize(file)
+        _, t_load = timed(lambda: ckpt.load(path, fresh, (c,)))
+        n = _same_tensors(getattr(fresh, c), getattr(model, c).state_dict(),
+                          f"checkpoint file {c}")
+        tree, t_to = timed(lambda: to_flax(getattr(model, c)))
+        blob, t_dumps = timed(lambda: msgpack_codec.dumps(tree))
+
+        def write():
+            with open(file, "wb") as f:
+                f.write(blob)
+        _, t_write = timed(write)
+        del tree, blob
+        tree, t_read = timed(lambda: msgpack_codec.read(file))
+        state, t_from = timed(lambda: from_flax(tree, dtype=None))
+        target = getattr(fresh, c).state_dict(keep_vars=True)
+
+        def copy():
+            with torch.no_grad():
+                for k, t in target.items():
+                    t.copy_(state[k])
+        _, t_copy = timed(copy)
+        del tree, state
+        print(f"checkpoint file {os.path.basename(path)}_{c}.msgpack: "
+              f"{size} bytes ({n} tensors), store {t_store:.3f} s "
+              f"({size / t_store / 1e9:.3f} GB/s: to_flax {t_to:.3f}, dumps "
+              f"{t_dumps:.3f}, write {t_write:.3f}), load onto the card "
+              f"{t_load:.3f} s ({size / t_load / 1e9:.3f} GB/s: read "
+              f"{t_read:.3f}, from_flax {t_from:.3f}, copy_ {t_copy:.3f}), "
+              f"bit for bit [{card}]")
+
+
+def timed_stores(fn, name, card):
+    """fn() with every `checkpoint.store` call timed; prints the phase's
+    seconds and its stores' count and seconds, returns fn's result."""
+    from tcnerf_torch.models import checkpoint as ckpt
+    original, spent = ckpt.store, []
+
+    def store(*args, **kw):
+        t0 = time.perf_counter()
+        original(*args, **kw)
+        spent.append(time.perf_counter() - t0)
+    ckpt.store = store
+    try:
+        out, wall = timed(fn)
+    finally:
+        ckpt.store = original
+    print(f"{name}: {wall:.1f} s, of which {len(spent)} checkpoint stores "
+          f"{sum(spent):.2f} s [{card}]")
+    return out
+
+
+def phase_checkpoint(dev, card, launches, root, scene, fused_final):
+    """The three stages joined by checkpoint files under `root`, at full
+    width. (1) `train_nerf._main` on nerf_1_view_wo (TRAIN_CUT, K1') for 2
+    fit rounds of 1 epoch, then again with n_epochs 3: the rerun loads
+    `model_final` (every tensor bit for bit the first run's final state,
+    the K1' weight pack rebuilt after the in-place load), starts at epoch 2
+    and skips the epoch-0 validation. (2) A renderer seeded otherwise
+    loads `model_final`; its `render_view` (swg, K2) equals the trained
+    model's bit for bit. (3) `train_goal` (goal_1_view, batch 8, one round)
+    on that backbone: the backbone loads bit for bit; best_* and
+    model_final_* hold the grasp components; a rerun with one round more
+    resumes bit for bit. (4) `GraspPipeline.from_checkpoints` on a goal
+    model seeded otherwise: 64 guesses' energies bit for bit the
+    trainer's model's, and a steady 4096-guess infer. (5) `train_language`
+    one round on phase_train_fused's v4-elu checkpoint: its decoder and
+    backbone load bit for bit. (6) `store_tf` / `load_tf` of the goal
+    model, bit for bit. (7) Per component file: bytes, store and load
+    seconds, GB/s. The counts are set to 0 before the resumed stage-1 run
+    and the served view and read after them."""
+    import os
+
+    import numpy as np
+    import torch
+    from tcnerf_torch.core import se3
+    from tcnerf_torch.models import checkpoint as ckpt
+    from tcnerf_torch.models.pipeline import GraspPipeline
+    from tcnerf_torch.train import (config, grasp_common, train_delta_ngf,
+                                    train_goal, train_language, train_nerf)
+
+    # (1) stage 1: two rounds, then a resumed third
+    data_dir = REPO / "build" / "chip_smoke_train"
+    stage1 = root / "ckpt_stage1"
+    cut = [f"data_dir={data_dir}", *TRAIN_CUT,
+           f"nerf_training.model_path={stage1}",
+           "nerf_training.eval_after_epochs=1"]
+    cfg = config.load_config(cut + ["nerf_training.n_epochs=2"],
+                             "nerf_1_view_wo")
+    print(f"checkpoint stage 1: nerf_1_view_wo at full width, 2 rounds of 1 "
+          f"epoch into {stage1}, then a rerun with n_epochs 3")
+    (state, history), wall = timed(lambda: train_nerf._main(cfg, dev))
+    print(f"checkpoint stage 1 first run: {len(history['steps'])} steps, "
+          f"validations after epochs {[e for e, _ in history['valid']]}, "
+          f"{wall:.1f} s; files "
+          f"{sorted(os.listdir(stage1))} [{card}]")
+    final = {k: v.detach().clone() for k, v in
+             state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+    seen = {}
+    original = train_nerf.init_weights
+
+    def packs(embeddings):
+        """Each embedding's K1' weight pack (built again only when its
+        key, the parameters' pointers and versions, changed); the build
+        counts."""
+        for e in embeddings:
+            e._chain_packs([e._chain_flat(e.feature_blocks, torch.float32),
+                            e._chain_flat(e.fusion_blocks, torch.float32)],
+                           torch.float32)
+        return [e.pack_builds for e in embeddings]
+
+    def init_weights(model, cfg_):
+        # the packs of the seeded weights first: the in-place load must
+        # change their key
+        embeddings = (model.coarse_embedding, model.fine_embedding)
+        seen["before"] = packs(embeddings)
+        original(model, cfg_)
+        seen["after"] = packs(embeddings)
+        seen["loaded"] = _same_tensors(model, final, "stage-1 resume")
+
+    cfg3 = config.load_config(cut + ["nerf_training.n_epochs=3"],
+                              "nerf_1_view_wo")
+    messages, stop = _capture_log()
+    train_nerf.init_weights = init_weights
+    reset_counts()
+    try:
+        (state, history), wall = timed(lambda: train_nerf._main(cfg3, dev))
+    finally:
+        train_nerf.init_weights = original
+        stop()
+    counts = read_counts()
+    launches["K1' checkpoint"] = counts.get("resmlp_rows_diff", 0)
+    valid = [e for e, _ in history["valid"]]
+    logged = [m for m in messages if m.startswith("Model loaded from")
+              or m.startswith("Starting training from epoch")]
+    print(f"checkpoint stage 1 resumed run: {logged}; {len(history['steps'])}"
+          f" steps, validations after epochs {valid}, {wall:.1f} s; right "
+          f"after the load {seen['loaded']} tensors bit-identical to the "
+          f"first run's final state; K1' packs built {seen['before']} before"
+          f" the load, {seen['after']} after it; launches {counts} [{card}]")
+    if not (any(m.startswith("Model loaded from") for m in logged)
+            and "Starting training from epoch 2" in logged and valid == [3]
+            and len(history["steps"]) == 1):
+        raise AssertionError("stage 1 did not resume at epoch 2")
+    if seen["after"] != [b + 1 for b in seen["before"]]:
+        raise AssertionError("the in-place load did not rebuild K1''s pack")
+    if launches["K1' checkpoint"] == 0:
+        raise AssertionError("the resumed stage-1 run launched no K1'")
+    trained = state.model
+
+    # (2) serve the file: a renderer seeded otherwise, loaded
+    served = train_nerf.build_model(config.load_config(
+        cut + ["nerf_training.n_epochs=3", "seed=7"], "nerf_1_view_wo"), dev)
+    ok, t_load = timed(lambda: ckpt.load(
+        str(stage1 / "model_final"), served,
+        ckpt.RENDERER_WITHOUT_COMPONENTS))
+    if not ok:
+        raise AssertionError("model_final did not load")
+    want = view_fn(trained, scene, dev)()
+    reset_counts()
+    got, t_view = timed(view_fn(served, scene, dev))
+    counts = read_counts()
+    launches["K2 checkpoint"] = counts.get("swg_head_inside", 0)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    print(f"check checkpoint served view: a renderer seeded otherwise, "
+          f"model_final loaded in {t_load:.3f} s, render_view {H}x{W} "
+          f"{t_view * 1e3:.1f} ms with {dict(counts)}; rgb and depth vs the "
+          f"trained model's {'bit for bit OK' if same else 'FAIL'} [{card}]")
+    if not same or launches["K2 checkpoint"] != 76:
+        raise AssertionError("the served view differs from the trained "
+                             "model's, or did not launch K2 76 times")
+    checkpoint_io(dev, card, trained, str(root / "io" / "stage1"),
+                  ckpt.RENDERER_WITHOUT_COMPONENTS, served)
+    del served, state
+    torch.cuda.empty_cache()
+
+    # (3) stage 2 on that backbone, then resumed
+    grasp_dir = REPO / "build" / "chip_smoke_grasp"
+    goal_dir = root / "ckpt_goal"
+    goal_cut = [f"dataset.path={grasp_dir / 'goal'}",
+                f"grasp_training.model_path={goal_dir}",
+                f"grasp_training.backbone_path={stage1}",
+                "grasp_training.eval_after_epochs=1"]
+
+    def backbone_loaded(out, model, *_):
+        seen["backbone"] = out[1]
+        seen["backbone_same"] = sum(
+            _same_tensors(getattr(model, c), getattr(trained, c).state_dict(),
+                          f"backbone {c}")
+            for c in ckpt.BACKBONE_COMPONENTS)
+
+    undo = _wrapped(train_goal, "load_backbone", backbone_loaded)
+    try:
+        run, wall = timed(lambda: train_goal.run_goal_training(
+            config.load_config(goal_cut + ["grasp_training.n_epochs=1"],
+                               "goal_1_view"), device=dev))
+    finally:
+        undo()
+    files = sorted(f for f in os.listdir(goal_dir) if f.endswith(".msgpack"))
+    want_files = sorted(f"{k}_{c}.msgpack" for k in ("best", "model_final")
+                        for c in ("fine_embedding", "visual_features",
+                                  "grasp_readout"))
+    print(f"checkpoint goal_1_view on the stage-1 backbone: load_backbone "
+          f"{seen['backbone']}, {seen['backbone_same']} backbone tensors "
+          f"bit-identical to stage 1's before the first step; "
+          f"{len(run.history['steps'])} step, {wall:.1f} s; files {files} "
+          f"[{card}]")
+    if not seen["backbone"] or files != want_files:
+        raise AssertionError("the goal stage did not load its backbone, or "
+                             "stored other files")
+    goal_final = {k: v.detach().clone() for k, v in
+                  run.state.model.state_dict().items()}
+    del run
+    torch.cuda.empty_cache()
+
+    def resumed(out, model, *_):
+        seen["resumed"] = _same_tensors(model, goal_final, "goal resume")
+
+    undo = _wrapped(train_goal, "resume_or_init", resumed)
+    messages, stop = _capture_log()
+    try:
+        run, wall = timed(lambda: train_goal.run_goal_training(
+            config.load_config(goal_cut + ["grasp_training.n_epochs=2"],
+                               "goal_1_view"), device=dev))
+    finally:
+        undo()
+        stop()
+    epochs = [e for e, _, _ in run.history["valid"]]
+    print(f"checkpoint goal_1_view rerun: "
+          f"{[m for m in messages if m.startswith('Model loaded')]}, "
+          f"{seen['resumed']} tensors bit-identical to the first run's; "
+          f"{len(run.history['steps'])} step, validations {epochs}, "
+          f"{wall:.1f} s [{card}]")
+    if epochs != [None, 2] or len(run.history["steps"]) != 1:
+        raise AssertionError("the goal stage did not resume at epoch 1")
+
+    # (4) serve grasps from the files
+    gcfg = config.load_config(goal_cut, "goal_1_view")
+    fresh = grasp_common.build_grasp_model(
+        config.load_config(goal_cut + ["seed=7"], "goal_1_view"), device=dev)
+    pipe, t_build = timed(lambda: GraspPipeline.from_checkpoints(
+        fresh, str(goal_dir), gcfg.generator_grasp.workspace_bounds,
+        backbone_dir=str(stage1), n_initial_guesses=4096, n_images=3,
+        n_optimization_steps=16, clip_translation=True))
+    memory = run.state.model.eval()
+    n = _same_tensors(fresh, memory.state_dict(), "pipeline weights")
+    images, intr, ext = (torch.as_tensor(x, device=dev)
+                         for x in grasp_scene(3, seed=2))
+    rng = np.random.default_rng(4)
+    bounds = np.asarray(gcfg.generator_grasp.workspace_bounds, np.float32)
+    poses = se3.pose_to_matrix(
+        torch.as_tensor(rng.uniform(bounds[:, 0], bounds[:, 1], (1, 64, 3)),
+                        dtype=torch.float32, device=dev),
+        torch.as_tensor(rng.normal(size=(1, 64, 4)), dtype=torch.float32,
+                        device=dev)).expand(3, -1, -1, -1)
+
+    def fold(x):
+        return x.reshape((3, 1) + tuple(x.shape[2:]))
+
+    with torch.no_grad():
+        energies = [m.energy(poses, fold(images), fold(intr), fold(ext),
+                             fold(m.compute_features(images)))
+                    for m in (fresh, memory)]
+    same = torch.equal(*energies)
+    scene3 = grasp_scene(3, seed=2)
+    pipe.infer(*scene3, rng=0)
+    walls = []
+    for _ in range(3):
+        result, t = timed(lambda: pipe.infer(*scene3, rng=0))
+        walls.append(t * 1e3)
+    print(f"check checkpoint pipeline: from_checkpoints in {t_build:.3f} s, "
+          f"{n} tensors as the trainer's model; 64 guesses' energies vs the "
+          f"trainer's in-memory model {'bit for bit OK' if same else 'FAIL'};"
+          f" infer (4096 guesses, 16 steps, 3 images) steady "
+          f"{float(np.median(walls)):.1f} ms (median of "
+          f"{[round(w, 1) for w in walls]}; phase_grasp's seeded model, "
+          f"above), top scores "
+          f"{[round(x, 4) for x in result.scores]} [{card}]")
+    if not same or not np.isfinite(result.all_energies).all():
+        raise AssertionError("the pipeline from files differs from the "
+                             "trainer's model")
+    checkpoint_io(dev, card, memory, str(root / "io" / "goal"),
+                  ckpt.GRASP_COMPONENTS, fresh)
+
+    # (6) the TF bundle layout
+    tf_fresh = grasp_common.build_grasp_model(
+        config.load_config(goal_cut + ["seed=8"], "goal_1_view"), device=dev)
+    _, t_store = timed(lambda: ckpt.store_tf(str(root / "tf" / "goal"),
+                                             memory, ckpt.GRASP_COMPONENTS))
+    _, t_load = timed(lambda: ckpt.load_tf(str(root / "tf" / "goal"),
+                                           tf_fresh, ckpt.GRASP_COMPONENTS))
+    n = _same_tensors(tf_fresh, memory.state_dict(), "TF bundle")
+    print(f"check checkpoint TF bundle: store_tf {t_store:.3f} s, load_tf "
+          f"{t_load:.3f} s, {n} tensors bit for bit OK [{card}]")
+    del run, pipe, fresh, tf_fresh, memory, energies, goal_final, final
+    torch.cuda.empty_cache()
+
+    # (5) the language stage on the v4-elu stage-1 checkpoint
+    def decoder_loaded(out, model, *_):
+        seen["language"] = out[1]
+        seen["language_same"] = sum(
+            _same_tensors(getattr(model, c), fused_final[c],
+                          f"language backbone {c}") for c in fused_final)
+
+    undo = _wrapped(train_delta_ngf, "load_backbone", decoder_loaded)
+    try:
+        run, wall = timed(lambda: train_language.run_language_training(
+            config.load_config(
+                [f"dataset.path={grasp_dir / 'language'}",
+                 "dataset.n_perspectives=5",
+                 f"grasp_training.model_path={root / 'ckpt_language'}",
+                 f"grasp_training.backbone_path="
+                 f"{root / 'nerf_1_view_v4_elu'}",
+                 "grasp_training.n_epochs=1",
+                 "grasp_training.eval_after_epochs=1"], "language_1_view"),
+            device=dev))
+    finally:
+        undo()
+    print(f"check checkpoint language_1_view on the nerf_1_view_v4_elu "
+          f"checkpoint: load_backbone {seen['language']}, "
+          f"{seen['language_same']} tensors of fine_embedding, "
+          f"visual_features and combine_clip_visual bit-identical to stage "
+          f"1's; {len(run.history['steps'])} step, {wall:.1f} s [{card}]")
+    if not seen["language"]:
+        raise AssertionError("the language stage did not load its backbone")
+    del run
+    torch.cuda.empty_cache()
+    k1d = launches["K1' checkpoint"]
+    print(f"checkpoint launches: K1' {k1d} in the resumed stage-1 run, K2 "
+          f"{launches['K2 checkpoint']} in the view served from the file "
+          f"[{card}]")
+
+
 KERNELS = {
     "K1": dict(name="resmlp_rows", source="tcnerf_torch/csrc/resmlp.cu",
                replaces="tcnerf/ops/pallas/resmlp.py:137",
@@ -1905,11 +2325,25 @@ def main(argv) -> int:
     phase_serve_3view(dev, card, launches)
     # after the serving phases, which thus run as they did before it existed
     kres.update(phase_gather(dev, card, launches))
-    kres.update(phase_train(dev, card, launches))
-    phase_train_fused(dev, card, launches)
-    phase_grasp(dev, card)
-    phase_grasp_language(dev, card)
-    phase_grasp_train(dev, card, launches)
+    # every checkpoint goes under one root outside the repository, removed
+    # at the end of the run
+    root = Path(tempfile.mkdtemp(prefix="tcnerf_chip_smoke_"))
+    try:
+        kres.update(timed_stores(
+            lambda: phase_train(dev, card, launches, root), "phase_train",
+            card))
+        fused_final = timed_stores(
+            lambda: phase_train_fused(dev, card, launches, root),
+            "phase_train_fused", card)
+        phase_grasp(dev, card)
+        phase_grasp_language(dev, card)
+        timed_stores(lambda: phase_grasp_train(dev, card, launches, root),
+                     "phase_grasp_train", card)
+        timed_stores(lambda: phase_checkpoint(dev, card, launches, root,
+                                              scene, fused_final),
+                     "phase_checkpoint", card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     rows = []
     for k, r in kres.items():          # K1-K3, then K4-K13 from the tools
         meta = KERNELS.get(k, r)

@@ -11,14 +11,19 @@ poses with their scores.
     result.poses[0]  # best Affine
 
 Everything after the host inputs runs on the model's device, in full fp32
-(the pipeline pins it, as every entry point does). Loading
-checkpoints (`from_checkpoints`) waits for checkpoint interop (ROADMAP
-Queue A item 4); a pipeline is built from a model and a state_dict (for
-example `params.from_flax` of a flax tree).
+(the pipeline pins it, as every entry point does). A pipeline is built from
+a model and a state_dict (for example `params.from_flax` of a flax tree,
+or None to keep the model's weights), or from checkpoint files either
+package wrote:
+
+    pipe = GraspPipeline.from_checkpoints(model, "<grasp run>",
+                                          workspace_bounds,
+                                          backbone_dir="<stage-1 run>")
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -29,6 +34,7 @@ import torch
 from ..device import resolve_device
 from ..opt.pose_optimizer import PoseOptimizer
 from ..tasks.transform import Affine
+from . import checkpoint as ckpt
 from .grasp import GraspEBM
 
 
@@ -66,12 +72,20 @@ class GraspPipeline:
         self.model.eval()
 
     @classmethod
-    def from_checkpoints(cls, model, model_dir: str, workspace_bounds,
-                         backbone_dir: Optional[str] = None, **kwargs):
-        raise NotImplementedError(
-            "GraspPipeline.from_checkpoints waits for checkpoint interop "
-            "(ROADMAP Queue A item 4); build the pipeline from a model and "
-            "its state_dict")
+    def from_checkpoints(cls, model: GraspEBM, model_dir: str,
+                         workspace_bounds, backbone_dir: Optional[str] = None,
+                         **kwargs) -> "GraspPipeline":
+        """A pipeline on `model` (built, on its device) with
+        `BACKBONE_COMPONENTS` loaded from `<backbone_dir>/model_final`,
+        then `GRASP_COMPONENTS` from `<model_dir>/model_final`, each in
+        place where its files are (tcnerf/models/pipeline.py:54-85)."""
+        if backbone_dir:
+            ckpt.load(os.path.join(backbone_dir, "model_final"), model,
+                      ckpt.BACKBONE_COMPONENTS)
+        ckpt.load(os.path.join(model_dir, "model_final"), model,
+                  ckpt.GRASP_COMPONENTS)
+        return cls(model=model, params=None,
+                   workspace_bounds=workspace_bounds, **kwargs)
 
     @property
     def device(self) -> torch.device:

@@ -82,6 +82,9 @@ class MVNeRFRenderer(nn.Module):
         self.near, self.far = near, far
         self.original_image_size = tuple(original_image_size)
         self.fusion = fusion
+        self.fusion_use_dense = fusion_use_dense
+        self.fusion_activation = fusion_activation
+        self.field = field
         self.n_blocks = n_blocks
         self.hidden_size = hidden_size
         self.corner_gather = corner_gather

@@ -1,7 +1,9 @@
-"""Weight bridge from flax parameter trees, and seeded initialisation.
+"""Weight bridge between flax parameter trees and the port, and seeded
+initialisation.
 
 `from_flax(tree)` takes a flax `params` tree as nested dicts of numpy
-arrays and returns the port's `state_dict` (torch tensors). The port names
+arrays and returns the port's `state_dict` (torch tensors); `to_flax(module)`
+is its inverse, bit for bit both ways. The port names
 its submodules as the flax modules are named, so a flax path
 `a/b/kernel` becomes `a.b.weight`. Layouts:
 
@@ -21,7 +23,7 @@ its submodules as the flax modules are named, so a flax path
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -31,8 +33,22 @@ import torch
 _OUT_PROJECTIONS = ("attn_out", "out")
 
 
-def _convert(path, name: str, value: np.ndarray, dtype=np.float32) -> tuple:
+def _as_tensor(value, dtype) -> torch.Tensor:
+    """A leaf (numpy array, or a torch tensor: the codec's bfloat16 leaves)
+    as a CPU tensor, cast to `dtype` (a numpy dtype) unless None."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu()
+        if dtype is None:
+            return value
+        value = value.float().numpy()
     a = np.asarray(value, dtype=dtype)
+    if not a.flags.writeable:            # torch takes no read-only arrays
+        a = a.copy()
+    return torch.from_numpy(a)
+
+
+def _convert(path, name: str, value, dtype=np.float32) -> tuple:
+    a = _as_tensor(value, dtype)
     module = path[-1] if path else ""
     if name == "kernel":
         if a.ndim == 2:                       # Dense
@@ -42,22 +58,24 @@ def _convert(path, name: str, value: np.ndarray, dtype=np.float32) -> tuple:
         elif a.ndim == 3:                     # DenseGeneral q/k/v
             a = a.reshape(a.shape[0], -1).T
         elif a.ndim == 4 and module.endswith("_deconv"):
-            a = np.transpose(a[::-1, ::-1], (2, 3, 0, 1))
+            a = torch.flip(a, (0, 1)).permute(2, 3, 0, 1)
         elif a.ndim == 4:                     # Conv HWIO -> OIHW
-            a = np.transpose(a, (3, 2, 0, 1))
+            a = a.permute(3, 2, 0, 1)
         else:
-            raise ValueError(f"unexpected kernel shape {a.shape} at {path}")
+            raise ValueError(f"unexpected kernel shape {tuple(a.shape)} at "
+                             f"{path}")
         name = "weight"
     elif name == "bias" and a.ndim == 2:      # DenseGeneral q/k/v bias
         a = a.reshape(-1)
     elif name == "embedding":                 # nn.Embed
         name = "weight"
-    return name, torch.from_numpy(np.array(a, dtype=dtype))  # copy
+    return name, a.clone(memory_format=torch.contiguous_format)  # copy
 
 
 def from_flax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
     """flax params tree (nested dicts of numpy arrays) -> port state_dict
-    (in `dtype`: float32, or float64 to carry f64 trees and gradients)."""
+    (in `dtype`: float32, or float64 to carry f64 trees and gradients;
+    None keeps each leaf's dtype, as a checkpoint load does)."""
     out = {}
 
     def walk(node, path):
@@ -70,6 +88,63 @@ def from_flax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
 
     walk(tree, [])
     return out
+
+
+_QKV = ("q", "k", "v")
+
+
+def _heads(module: torch.nn.Module) -> Optional[int]:
+    """The heads count of an attention module (ViT and CLIP text blocks,
+    AttentionPool2d), whose q/k/v and output projections are flax
+    DenseGenerals; None for any other module."""
+    n = getattr(module, "num_heads", getattr(module, "heads", None))
+    return n if isinstance(n, int) and not isinstance(n, bool) else None
+
+
+def to_flax(module: torch.nn.Module) -> Dict:
+    """The inverse of `from_flax`: `module`'s state_dict -> the flax params
+    tree, nested dicts of numpy arrays in the tensors' dtypes (bfloat16 leaves stay CPU
+    `torch.bfloat16` tensors, which numpy cannot hold). The module gives
+    what a tensor's shape does not: the heads count of a DenseGeneral
+    q/k/v ([heads*hd, D] -> [D, heads, hd]; bias [heads, hd]) and output
+    projection ([D, heads*hd] -> [heads, hd, D]), and which `weight` is an
+    `nn.Embedding`'s (-> `embedding`)."""
+    heads = {name: n for name, m in module.named_modules()
+             if (n := _heads(m)) is not None}
+    embeds = {name for name, m in module.named_modules()
+              if isinstance(m, torch.nn.Embedding)}
+    tree: Dict = {}
+    for key, value in module.state_dict().items():
+        *path, leaf = key.split(".")
+        owner, parent = ".".join(path), ".".join(path[:-1])
+        sub = path[-1] if path else ""
+        n = heads.get(parent) if sub in _QKV + _OUT_PROJECTIONS else None
+        a = value.detach().cpu()
+        if leaf == "weight" and owner in embeds:
+            leaf = "embedding"
+        elif leaf == "weight":
+            if a.ndim == 2 and n and sub in _QKV:
+                a = a.T.reshape(a.shape[1], n, -1)
+            elif a.ndim == 2 and n:
+                a = a.T.reshape(n, -1, a.shape[0])
+            elif a.ndim == 2:
+                a = a.T
+            elif a.ndim == 4 and sub.endswith("_deconv"):
+                a = torch.flip(a.permute(2, 3, 0, 1), (0, 1))
+            elif a.ndim == 4:
+                a = a.permute(2, 3, 1, 0)
+            else:
+                raise ValueError(f"unexpected weight shape {tuple(a.shape)} "
+                                 f"at {key}")
+            leaf = "kernel"
+        elif leaf == "bias" and n and sub in _QKV:
+            a = a.reshape(n, -1)
+        a = a.clone(memory_format=torch.contiguous_format)
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = a if a.dtype == torch.bfloat16 else a.numpy()
+    return tree
 
 
 def _dense_init(p: torch.Tensor, kind: str, generator: torch.Generator):

@@ -4,16 +4,15 @@ optimizer of the validation, and the validation samples with their
 features. Validation scores poses with `tasks.agents.OracleAgent`; the task
 plugins and `build_oracle` are not ported.
 
-Checkpoints are not read yet (ROADMAP Queue A item 4). A run without a
-backbone checkpoint keeps the seeded weights, as the JAX package does (and
-raises under `grasp_training.require_backbone`); where component files of
-a checkpoint exist, `load_backbone` and `resume_or_init` raise instead of
-training seeded weights beside them.
+`load_backbone` loads the stage-1 backbone (and for a fused model its
+decoder) from `<backbone_path>/model_final` and `resume_or_init` resumes
+`<model_path>/model_final`, in place, through `models/checkpoint.py`, as
+the JAX package's do; a run without a backbone checkpoint keeps the seeded
+weights (and raises under `grasp_training.require_backbone`).
 """
 
 from __future__ import annotations
 
-import glob
 import logging
 import os
 import time
@@ -24,6 +23,7 @@ import torch
 
 from ..data.prefetch import prefetched_epochs
 from ..device import resolve_device
+from ..models import checkpoint as ckpt
 from ..models import grasp_training as GT
 from ..models.grasp import GraspEBM
 from ..opt.pose_optimizer import PoseOptimizer
@@ -96,53 +96,82 @@ def init_grasp_state(model: GraspEBM, cfg, trainable=("grasp_readout",)
         trainable=trainable)
 
 
-def _component_files(path: str):
-    """The files of a component checkpoint at `path` (`<path>_<component>`
-    in flax msgpack or as a TF tensor bundle)."""
-    return sorted(f for suffix in (".msgpack", ".index")
-                  for f in glob.glob(glob.escape(path) + "_*" + suffix))
-
-
-def _refuse_checkpoint(path: str, what: str) -> None:
-    files = _component_files(path)
-    if files:
-        raise NotImplementedError(
-            f"{what} checkpoint at {path} ({len(files)} component files, "
-            f"e.g. {os.path.basename(files[0])}): reading it waits for "
-            "checkpoint interop (ROADMAP Queue A item 4); the port does not "
-            "train seeded weights beside it")
-
-
 def load_backbone(model: GraspEBM, cfg, fusion: bool = False):
-    """The stage-1 backbone (and under `fusion` its decoder) at
-    `<backbone_path>/model_final`. Without one the seeded weights stay
-    (with a warning), unless `grasp_training.require_backbone` asks for
-    the JAX package's FileNotFoundError. Returns (model, loaded)."""
+    """The frozen stage-1 backbone at `<backbone_path>/model_final`, in
+    place (tcnerf/train/grasp_common.py:91-163, branch for branch). Under
+    `fusion` the stage-1 fusion decoder (`combine_clip_visual`) comes with
+    it when the sidecar `model_final_meta.json` names a v3/v4 decoder of
+    the language flavour (dense text gate, elu) or there is no sidecar; a
+    flavour mismatch warns (raises ValueError under
+    `grasp_training.require_backbone`) and a decoder whose keys or shapes
+    do not match warns; both then load the bare backbone. Without a
+    backbone the seeded weights stay, with a warning, unless
+    `require_backbone` asks for the reference's FileNotFoundError. Returns
+    (model, loaded)."""
+    require = cfg.grasp_training.get("require_backbone", False)
     backbone = os.path.join(cfg.grasp_training.backbone_path, "model_final")
-    _refuse_checkpoint(backbone, "backbone")
-    if cfg.grasp_training.get("require_backbone", False):
+    meta = ckpt.load_meta(backbone)
+    if fusion:
+        flavor_ok = True
+        if meta is not None and meta.get("fusion") not in ("v3", "v4"):
+            flavor_ok = False
+            log.info("Backbone at %s is fusion=%r (no stage-1 fusion "
+                     "decoder); loading the bare backbone.", backbone,
+                     meta.get("fusion"))
+        elif meta is not None:
+            want = {"fusion_use_dense": True, "fusion_activation": "elu"}
+            mismatches = {k: (meta.get(k), v) for k, v in want.items()
+                          if meta.get(k) != v}
+            if mismatches:
+                flavor_ok = False
+                msg = (f"Backbone at {backbone} was trained with the wrong "
+                       f"fusion-decoder flavor for the language stage (got "
+                       f"vs want: {mismatches}); the param trees may still "
+                       f"coincide, so this would train with the wrong "
+                       f"nonlinearity.")
+                if require:
+                    raise ValueError(msg)
+                log.warning("%s Falling back to the bare backbone.", msg)
+        loaded = False
+        if flavor_ok:
+            try:
+                loaded = ckpt.load(backbone, model, ckpt.BACKBONE_COMPONENTS
+                                   + ("combine_clip_visual",))
+            except ValueError as e:
+                log.warning("Fusion decoder at %s does not match this "
+                            "model's parameters: %s", backbone, e)
+        if loaded:
+            log.info("Backbone (+fusion decoder) loaded from %s.", backbone)
+            return model, True
+        log.warning("No fusion decoder at %s (or shape mismatch); trying the "
+                    "bare backbone.", backbone)
+    if ckpt.load(backbone, model, ckpt.BACKBONE_COMPONENTS):
+        log.info("Backbone loaded from %s.", backbone)
+        return model, True
+    if require:
         raise FileNotFoundError(
             f"Backbone not found at {backbone} and "
             "grasp_training.require_backbone=true")
-    log.warning("Backbone not found at %s; using the seeded backbone%s.",
-                backbone, " and fusion decoder" if fusion else "")
+    log.warning("Backbone not found at %s; using the seeded backbone.",
+                backbone)
     return model, False
 
 
-def resume_or_init(model: GraspEBM, cfg) -> GraspEBM:
-    """A fresh model: raises where `<model_path>/model_final` has component
-    files or `training_progress.json` records an earlier run, whose
-    weights the port cannot read yet (the session would otherwise resume
-    its epoch count with seeded weights)."""
-    model_path = cfg.grasp_training.model_path
-    _refuse_checkpoint(os.path.join(model_path, "model_final"), "grasp model")
-    progress = os.path.join(model_path, "training_progress.json")
-    if os.path.exists(progress):
-        raise NotImplementedError(
-            f"{progress} records an earlier run whose weights the port "
-            "cannot read (ROADMAP Queue A item 4); use a fresh "
-            "grasp_training.model_path")
-    log.info("New model initialized (seeded weights)")
+def resume_or_init(model: GraspEBM, cfg, extra_components=()) -> GraspEBM:
+    """Resume from `<model_path>/model_final`, in place: the grasp
+    components with `extra_components` (e.g. `combine_clip_visual` of a
+    fused model) where the checkpoint has them, else the grasp components
+    alone (tcnerf/train/grasp_common.py:166-180); without a checkpoint the
+    model stays as it is."""
+    checkpoint = os.path.join(cfg.grasp_training.model_path, "model_final")
+    for components in (ckpt.GRASP_COMPONENTS + tuple(extra_components),
+                       ckpt.GRASP_COMPONENTS):
+        if ckpt.load(checkpoint, model, components):
+            log.info("Model loaded from %s (%d component groups).",
+                     checkpoint, len(components))
+            return model
+        if not extra_components:
+            break
     return model
 
 

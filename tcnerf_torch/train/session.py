@@ -8,8 +8,7 @@ Validation calls the port's `compute_results` on a prepared scene per
 sample; its pose optimizer is a `PoseOptimizer` (or anything with its
 `reset_optimizer`, `generate_initial_guesses`, `init_state`, `prepare`,
 `optimize_pose`, `compute_current_grasp_success` and `get_results`).
-`store_fn` None skips the checkpoint writes: the port writes no checkpoint
-until checkpoint interop is ported (ROADMAP Queue A item 4).
+`store_fn(path)` writes the checkpoints (`<dir>/best`, `model_final`).
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ import logging
 import os
 import pickle
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List
 
 import numpy as np
 
@@ -131,7 +130,7 @@ def log_results(epoch: int, results, wandb_initialized: bool):
 # --------------------------------------------------------------- grasp session
 
 def train_grasp_model(fit_epochs_fn: Callable[[int, int], None],
-                      store_fn: Optional[Callable[[str], None]],
+                      store_fn: Callable[[str], None],
                       n_epochs: int, eval_after_epochs: int,
                       model_log_dir: str, model_checkpoint_name: str,
                       grasp_optimizer, optimization_config: dict,
@@ -149,9 +148,6 @@ def train_grasp_model(fit_epochs_fn: Callable[[int, int], None],
     run, wandb_initialized = wandb.init_wandb(wandb_config)
     best_mean_error, n_fits, start_epoch, start_n_fit, progress_file = \
         load_training_progress(eval_after_epochs, model_log_dir, n_epochs)
-    if store_fn is None:
-        log.info("No checkpoint is written: checkpoints wait for the "
-                 "checkpoint interop (ROADMAP Queue A item 4)")
     history: Dict[str, List] = {"valid": []}
 
     t0 = time.perf_counter()
@@ -180,8 +176,7 @@ def train_grasp_model(fit_epochs_fn: Callable[[int, int], None],
         best_each = [r["errors_r"][-1] for r in results]
         new_mean = list(np.mean(np.stack(best_each, axis=0), axis=0))
         if error_score(new_mean) < error_score(best_mean_error):
-            if store_fn is not None:
-                store_fn(os.path.join(model_log_dir, "best"))
+            store_fn(os.path.join(model_log_dir, "best"))
             best_mean_error = new_mean
             log.info("New best mean error: %s, %s", best_mean_error[0] * 1000,
                      best_mean_error[1] / np.pi * 180)
@@ -189,8 +184,7 @@ def train_grasp_model(fit_epochs_fn: Callable[[int, int], None],
         with open(progress_file, "w") as f:
             json.dump({"epoch": e_epoch, "best_mean_error": best_mean_error},
                       f)
-        if store_fn is not None:
-            store_fn(model_checkpoint_name)
+        store_fn(model_checkpoint_name)
     if wandb_initialized and run is not None:
         run.finish()
     return history

@@ -7,8 +7,10 @@ plus the second-order gradient supervision along expert trajectories
 (`models/grasp_training.py` `delta_ngf_train_step`); validation runs the
 synchronized t + r ascent. `run_delta_training` also drives
 `train_trajectory` and `train_language`. It runs on the card; `device=cpu`
-runs it on the CPU. The hash-grid grasp field (`grasp_model.encoding:
-hashgrid`, `dngf_hashgrid`) is not ported and raises.
+runs it on the CPU. Checkpoints as `train_goal`'s, with
+`combine_clip_visual` beside `GRASP_COMPONENTS` for a fused model. The
+hash-grid grasp field (`grasp_model.encoding: hashgrid`, `dngf_hashgrid`)
+is not ported and raises.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import List, Optional
 from ..data.generators import DeltaNGFDataGenerator
 from ..data.loaders import load_dataset, load_dataset_language
 from ..device import resolve_device
+from ..models import checkpoint as ckpt
 from ..models import grasp_training as GT
 from .grasp_common import (GraspRun, build_grasp_model, build_pose_optimizer,
                            collect_valid_data, entry, init_grasp_state,
@@ -74,8 +77,9 @@ def run_delta_training(cfg, generator_cls=DeltaNGFDataGenerator, sync=True,
         raise NotImplementedError("train_hash_tables: the hash-grid grasp "
                                   "field is not ported")
     state = init_grasp_state(model, cfg, trainable)
+    extras = ("combine_clip_visual",) if fusion is not None else ()
     load_backbone(model, cfg, fusion=fusion is not None)
-    resume_or_init(model, cfg)
+    resume_or_init(model, cfg, extra_components=extras)
     pose_optimizer = build_pose_optimizer(model, cfg)
     valid_data = collect_valid_data(datasets[1], cfg, model, tokenize_fn,
                                     defer_features=train_fusion)
@@ -99,10 +103,13 @@ def run_delta_training(cfg, generator_cls=DeltaNGFDataGenerator, sync=True,
             return [(inp, compute(inp[0], inp[3]), info, gp)
                     for (inp, _feats, info, gp) in valid_data]
 
+    def store(path):
+        ckpt.store(path, model, ckpt.GRASP_COMPONENTS + extras)
+
     oc = cfg.validation.grasp_opt_config.optimization_config.to_dict()
     oc["sync"] = sync
     history.update(train_grasp_model(
-        make_fit_epochs(step, data_generator, dev, history), None,
+        make_fit_epochs(step, data_generator, dev, history), store,
         nt.n_epochs, nt.eval_after_epochs, nt.model_path,
         os.path.join(nt.model_path, "model_final"), pose_optimizer, oc,
         {"project": wandb_project, "dir": nt.model_path,

@@ -7,8 +7,11 @@ trains the `GraspReadout` of `goal_1_view` on a frozen backbone with the
 divergence with `grasp_training.loss_reduction` "mean" or "sum"),
 validating by pose ascent and the oracle's errors. It runs on the card;
 `device=cpu` runs it on the CPU. Datasets are synthesized where
-`dataset.path` holds none; the weights are seeded from `seed`, since the
-port reads no checkpoint yet (`grasp_common.load_backbone`).
+`dataset.path` holds none. The backbone comes from
+`grasp_training.backbone_path` (`grasp_common.load_backbone`; seeded from
+`seed` where there is none), a run resumes `<model_path>/model_final`, and
+the session stores `GRASP_COMPONENTS` to `<model_path>/best` and
+`model_final`.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import List, Optional
 from ..data.generators import GraspMVNeRFDataGenerator
 from ..data.loaders import load_dataset_baseline
 from ..device import resolve_device
+from ..models import checkpoint as ckpt
 from ..models import grasp_training as GT
 from .grasp_common import (GraspRun, build_grasp_model, build_pose_optimizer,
                            collect_valid_data, entry, init_grasp_state,
@@ -65,9 +69,12 @@ def run_goal_training(cfg, device=None) -> GraspRun:
         return GT.grasp_train_step(state, inputs, labels, loss_name,
                                    loss_reduction)[1]
 
+    def store(path):
+        ckpt.store(path, model, ckpt.GRASP_COMPONENTS)
+
     oc = cfg.validation.grasp_opt_config.optimization_config.to_dict()
     history.update(train_grasp_model(
-        make_fit_epochs(step, data_generator, dev, history), None,
+        make_fit_epochs(step, data_generator, dev, history), store,
         nt.n_epochs, nt.eval_after_epochs, nt.model_path,
         os.path.join(nt.model_path, "model_final"), pose_optimizer, oc,
         {"project": "nerf-manipulation", "dir": nt.model_path,

@@ -34,8 +34,17 @@ round of `eval_after_epochs` epochs ends with a validation render through
 card's machine has no PIL); a validation runs before the first round too.
 Each validation appends a line to `<model_path>/metrics.jsonl`.
 
-Not here: checkpoints, resuming and `training_progress.json`, which wait
-for checkpoint interop (flax msgpack; ROADMAP Queue A item 4).
+Checkpoints are the JAX package's files (`models/checkpoint.py`): after
+each round the trainer writes `{"epoch": e}` to
+`<model_path>/training_progress.json`, stores `<model_path>/model_final`
+(`RENDERER_WITHOUT_COMPONENTS` for fusion "without", else
+`RENDERER_COMPONENTS`) and its flavour sidecar `model_final_meta.json`.
+At start `_main` loads `model_final` where it is; otherwise it takes the
+ViT of `torch_weights_path` (a timm ViT-B state_dict) where that file is,
+else keeps the seeded weights. A run into a directory with a progress file
+resumes: the fit rounds start at its epoch and the epoch-0 validation is
+skipped. As in the JAX package, a resumed run starts a fresh optimizer
+state: Adam's moments and the warm-up count begin again.
 """
 
 from __future__ import annotations
@@ -56,11 +65,13 @@ from ..data.generators import MVNeRFDataGenerator
 from ..data.loaders import ensure_dataset, load_dataset_nerf
 from ..data.prefetch import prefetched_epochs
 from ..device import resolve_device
+from ..models import checkpoint as ckpt
 from ..models import training as T
 from ..models.inference import psnr, render_view
 from ..models.renderer import MVNeRFRenderer
 from ..params import init_params
 from .config import load_config, parse_argv
+from .session import init_training_session
 
 log = logging.getLogger("tcnerf_torch.train")
 
@@ -161,15 +172,26 @@ def run_validation(model, valid_data, device, generator, out_path) -> float:
     return value
 
 
+def renderer_components(model: MVNeRFRenderer):
+    """The checkpoint components of a renderer of `model.fusion`."""
+    return (ckpt.RENDERER_WITHOUT_COMPONENTS if model.fusion == "without"
+            else ckpt.RENDERER_COMPONENTS)
+
+
 def train_model(state: T.TrainState, data_generator: MVNeRFDataGenerator,
                 cfg, valid_data, device: torch.device,
                 generator: torch.Generator) -> Dict[str, List]:
-    """n_epochs // eval_after_epochs fit rounds of eval_after_epochs epochs,
-    fed by `prefetched_epochs`. Returns the history: per step its loss and
-    host seconds (`data_s`, the wait for the prefetched batch; `step_s`, the
-    whole step, ending when the loss has reached the host), and per
-    validation (epoch, PSNR dB)."""
+    """The fit rounds from the one `training_progress.json` records to
+    n_epochs // eval_after_epochs, each of eval_after_epochs epochs fed by
+    `prefetched_epochs` and followed by a validation, the progress file and
+    the checkpoint `model_final` with its sidecar. Returns the history: per
+    step its loss and host seconds (`data_s`, the wait for the prefetched
+    batch; `step_s`, the whole step, ending when the loss has reached the
+    host), and per validation (epoch, PSNR dB)."""
     nt = cfg.nerf_training
+    model = state.model
+    start_epoch, progress_file = init_training_session(nt.model_path)
+    checkpoint = os.path.join(nt.model_path, "model_final")
     history: Dict[str, List] = {"steps": [], "valid": []}
     valid_dir = os.path.join(nt.model_path, "valid")
     os.makedirs(valid_dir, exist_ok=True)
@@ -184,8 +206,10 @@ def train_model(state: T.TrainState, data_generator: MVNeRFDataGenerator,
                        "t": time.time()}, f)
             f.write("\n")
 
-    validate(0, None)
-    for k in range(nt.n_epochs // nt.eval_after_epochs):
+    if start_epoch == 0:
+        validate(0, None)
+    for k in range(start_epoch // nt.eval_after_epochs,
+                   nt.n_epochs // nt.eval_after_epochs):
         batches = iter(prefetched_epochs(data_generator, nt.eval_after_epochs,
                                          device))
         while True:
@@ -202,7 +226,34 @@ def train_model(state: T.TrainState, data_generator: MVNeRFDataGenerator,
         epoch = (k + 1) * nt.eval_after_epochs
         log.info("epoch %d: loss %.5f", epoch, history["steps"][-1]["loss"])
         validate(epoch, history["steps"][-1]["loss"])
+        with open(progress_file, "w") as f:
+            json.dump({"epoch": epoch}, f)
+        ckpt.store(checkpoint, model, renderer_components(model))
+        ckpt.store_meta(checkpoint, {
+            "fusion": model.fusion,
+            "fusion_use_dense": model.fusion_use_dense,
+            "fusion_activation": model.fusion_activation,
+            "field": model.field})
     return history
+
+
+def init_weights(model: MVNeRFRenderer, cfg) -> None:
+    """`<model_path>/model_final` where it is; else the ViT-B of
+    `torch_weights_path` where that file is; else the seeded weights stay.
+    In place, as tcnerf/train/train_nerf.py `_main` chooses."""
+    checkpoint = os.path.join(cfg.nerf_training.model_path, "model_final")
+    weights = cfg.get("torch_weights_path") or ""
+    if ckpt.load(checkpoint, model, renderer_components(model)):
+        log.info("Model loaded from %s.", checkpoint)
+    elif os.path.exists(weights):
+        from ..clip.import_torch import load_vit_b
+        sd = torch.load(weights, map_location="cpu", weights_only=True)
+        if hasattr(sd, "state_dict"):
+            sd = sd.state_dict()
+        load_vit_b(model.visual_features.vision_transformer.vit, sd)
+        log.info("New model initialized from pretrained ViT weights")
+    else:
+        log.info("New model initialized (random ViT; no torch weights found)")
 
 
 def _main(cfg, device: Optional[torch.device] = None,
@@ -236,7 +287,7 @@ def _main(cfg, device: Optional[torch.device] = None,
         feature_lr=nt.get("feature_learning_rate", 1e-5),
         warmup_steps=nt.get("warmup_steps", 10000),
         scale_down_after=nt.get("scale_down_after", 450000)))
-    log.info("New model initialized (seeded random weights) on %s", dev)
+    init_weights(model, cfg)
     history = train_model(state, data_generator, cfg, valid_data, dev,
                           torch.Generator(device=dev).manual_seed(seed + 1))
     return state, history

@@ -807,3 +807,77 @@ def test_grasp_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
                  train_language.main):
         with pytest.raises(RuntimeError, match="CUDA"):
             main([f"data_dir={tmp_path}"])
+
+
+# ------------------------------------------------------------ checkpoints
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_checkpoint_round_trips_card_tensors(cuda, dtype, tmp_path):
+    """Every component of the tiny v0 renderer on the card, f32 and bf16:
+    `store` writes each leaf in its dtype ("bfloat16" for bf16), and `load`
+    into another seeded model on the card brings every tensor back bit
+    for bit, in place (the same parameter objects, on the card, in the
+    model's dtype); the codec alone round-trips the card's tensors."""
+    from tcnerf_torch.models import checkpoint as ckpt
+    from tcnerf_torch.models import msgpack_codec
+    from tcnerf_torch.params import from_flax, to_flax
+    src = _tiny_fused(cuda).to(dtype)
+    dst = _tiny_fused("cpu")
+    init_params(dst, torch.Generator().manual_seed(7))
+    dst = dst.to(device=cuda, dtype=dtype)
+    params = {n: p for n, p in dst.named_parameters()}
+    path = str(tmp_path / "model_final")
+    ckpt.store(path, src, ckpt.RENDERER_COMPONENTS)
+    tree = msgpack_codec.read(ckpt.component_path(path, "fine_readout"))
+    leaf = tree["output_layer"]["kernel"]
+    assert (leaf.dtype == torch.bfloat16 if dtype == torch.bfloat16
+            else leaf.dtype == np.float32)
+    assert ckpt.load(path, dst, ckpt.RENDERER_COMPONENTS)
+    for c in ckpt.RENDERER_COMPONENTS:
+        want = getattr(src, c).state_dict()
+        for n, t in getattr(dst, c).state_dict().items():
+            assert t.is_cuda and t.dtype == dtype, n
+            assert torch.equal(t, want[n]), n
+    assert all(p is params[n] for n, p in dst.named_parameters())
+    again = from_flax(msgpack_codec.loads(msgpack_codec.dumps(
+        to_flax(src.visual_features))), dtype=None)
+    for n, t in src.visual_features.state_dict().items():
+        assert again[n].dtype == dtype and torch.equal(again[n].to(cuda), t)
+
+
+@pytest.mark.gpu
+def test_k1_pack_rebuilt_after_a_load(cuda, tmp_path):
+    """An embedding on the K1' path (use_pallas) loads new weights in place:
+    its next forward rebuilds the kernel's weight pack (its key reads the
+    parameters' versions) and equals a fresh model of the loaded weights."""
+    from tcnerf_torch.models import checkpoint as ckpt
+    rng = np.random.default_rng(13)
+    pos = _tt(rng.normal(size=(4, 32, 16, 3)) * 0.5).to(cuda)
+    dirs = _tt(rng.normal(size=(4, 32, 16, 3)) * 0.5).to(cuda)
+    feats = _tt(rng.normal(size=(4, 32, 16, 32))).to(cuda)
+
+    def embedding(seed):
+        m = MVResNetMLPEmbedding(32, n_blocks=6, hidden_size=HID, n_views=2,
+                                 embed_direction_vector=True,
+                                 use_pallas=True).to(cuda)
+        init_params(m, torch.Generator(device=cuda).manual_seed(seed))
+        return m
+
+    holder, other = torch.nn.Module(), torch.nn.Module()
+    holder.fine_embedding, other.fine_embedding = embedding(0), embedding(1)
+    m = holder.fine_embedding
+    with torch.no_grad():
+        m(pos, dirs, feats)
+        m(pos, dirs, feats)
+        assert m.pack_builds == 1
+        path = str(tmp_path / "model_final")
+        ckpt.store(path, other, ("fine_embedding",))
+        assert ckpt.load(path, holder, ("fine_embedding",))
+        before = RESMLP.counts["resmlp_rows_diff"]
+        got = m(pos, dirs, feats)
+        assert m.pack_builds == 2
+        assert RESMLP.counts["resmlp_rows_diff"] == before + 2
+        want = other.fine_embedding(pos, dirs, feats)
+    assert torch.equal(got, want)

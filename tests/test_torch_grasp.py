@@ -26,6 +26,7 @@ from test_torch_fusion import _close, _fill, _t
 from tcnerf.clip import tokenizer as jtok
 from tcnerf.core import projection as jproj
 from tcnerf.core import se3 as jse3
+from tcnerf.models import checkpoint as jckpt
 from tcnerf.models import grasp as jgrasp
 from tcnerf.models import pipeline as jpipeline
 from tcnerf.nn.grasp_readout import GraspReadout as FlaxReadout
@@ -504,13 +505,17 @@ def test_alternating_compute_results_matches_jax(models):
             np.testing.assert_allclose(a.matrix, b.matrix, rtol=0, atol=1e-4)
 
 
-def test_pipeline_infer_matches_jax(models):
+def test_pipeline_infer_matches_jax(models, tmp_path):
     """GraspPipeline.infer with 8 guesses, 3 images and the 3_images
     schedule (16 synchronized steps; the language model with its prompt
     through each package's tokenizer), both in f64 (the JAX pipeline on
     f64 parameters, its seeded f32 guesses cast to f64): every
     energy 1e-3 relative, the top-k order equal wherever neighbouring
-    scores differ by more than that, the top poses 1e-4 absolute."""
+    scores differ by more than that, the top poses 1e-4 absolute. The
+    pipeline `from_checkpoints` builds from the JAX package's files of the
+    same weights (a backbone and a grasp run) into a model whose grasp
+    components were seeded otherwise gives the same energies, bit for
+    bit."""
     images, intr, ext = models["scene"]
     text = PROMPT if models["kind"] == "language" else None
     rep = "6d" if models["kind"] == "language" else "quaternion"
@@ -538,9 +543,19 @@ def test_pipeline_infer_matches_jax(models):
                                        atol=1e-4)
     assert len(got.poses) == len(got.scores) == pipe.top_k
     assert got.scores == sorted(got.scores, reverse=True)
-    with pytest.raises(NotImplementedError):
-        pipeline.GraspPipeline.from_checkpoints(port, "/nonexistent",
-                                                WORKSPACE)
+    stage1, run = tmp_path / "stage1", tmp_path / "run"
+    jckpt.store(str(stage1 / "model_final"), models["params"],
+                jckpt.BACKBONE_COMPONENTS)
+    jckpt.store(str(run / "model_final"), models["params"],
+                jckpt.GRASP_COMPONENTS)
+    fresh = copy.deepcopy(port)
+    for c in ("fine_embedding", "visual_features", "grasp_readout"):
+        init_params(getattr(fresh, c), torch.Generator().manual_seed(9))
+    loaded = pipeline.GraspPipeline.from_checkpoints(
+        fresh, str(run), backbone_dir=str(stage1), **kw)
+    assert loaded.model is fresh
+    again = loaded.infer(images, intr, ext, text=text, rng=3)
+    np.testing.assert_array_equal(again.all_energies, got.all_energies)
 
 
 # ------------------------------------------------------- build_grasp_model

@@ -301,10 +301,13 @@ def test_session_loop_matches_jax(tmp_path):
 
 
 def test_session_loop_without_store_writes_the_rest(tmp_path):
-    """store_fn None: no store, the same progress and results files."""
+    """A store_fn that writes nothing: the session still writes the
+    progress and results files, and calls it for best (the first round's
+    score beats the initial one) and model_final after each round."""
     opt = PortFake([0.5, 0.0, 0.1])
+    stored = []
     history = session.train_grasp_model(
-        lambda i, e: None, None, 2, 1, str(tmp_path),
+        lambda i, e: None, stored.append, 2, 1, str(tmp_path),
         str(tmp_path / "model_final"), opt, {"n_optimization_steps": 1},
         {"project": "t", "dir": str(tmp_path)},
         [([None] * 4, None, {}, np.eye(4))], rng=0)
@@ -313,6 +316,8 @@ def test_session_loop_without_store_writes_the_rest(tmp_path):
         "epoch"] == 2
     assert sorted(os.listdir(tmp_path / "valid")) == ["results-1.pkl",
                                                       "results-2.pkl"]
+    assert stored[0] == str(tmp_path / "best")
+    assert stored.count(str(tmp_path / "model_final")) == 2
 
 
 def test_oracle_error_matches_jax():
@@ -416,39 +421,127 @@ def test_entry_point_trains_on_the_cpu(data_dir, name, run, extra, metric,
             results = pickle.load(f)
         assert len(results) == 2 and len(results[0]["errors_r"]) == 5
     assert [e for e, _, _ in run_.history["valid"]] == [None, 1, 2]
-    with pytest.raises(NotImplementedError, match="training_progress"):
-        run(cfg, device="cpu")
+    extra = ("combine_clip_visual",) if "language" in name else ()
+    assert sorted(f for f in os.listdir(model_dir)
+                  if f.endswith(".msgpack")) == sorted(
+        f"{kind}_{c}.msgpack" for kind in ("best", "model_final")
+        for c in ("fine_embedding", "visual_features", "grasp_readout")
+        + extra)
+    # the rerun resumes: model_final loads, no round is left to train
+    again = run(cfg, device="cpu")
+    assert again.history["steps"] == []
+    assert [e for e, _, _ in again.history["valid"]] == [None]
+    for (n, p), q in zip(again.state.model.named_parameters(),
+                         run_.state.model.parameters()):
+        assert torch.equal(p.detach(), q.detach()), n
 
 
 # -------------------------------------------------------- backbone guard
 
 
-def test_backbone_and_resume_guards(tmp_path):
-    """Without a checkpoint the seeded weights stay (or FileNotFoundError
-    under require_backbone); with component files at the backbone or the
-    model path, or a progress file, the guards raise."""
-    cfg = config.load_config(TINY + [f"data_dir={tmp_path}"], "goal_1_view")
-    model = object()
-    assert grasp_common.load_backbone(model, cfg) == (model, False)
-    assert grasp_common.resume_or_init(model, cfg) is model
+class _JState:
+    """What tcnerf's load_backbone / resume_or_init read of a train state."""
+
+    def __init__(self, params):
+        self.params = params
+
+    def replace(self, params):
+        return _JState(params)
+
+
+def test_backbone_and_resume_guards(tmp_path, caplog):
+    """load_backbone and resume_or_init on files the JAX package wrote
+    (`tcnerf.models.checkpoint.store`, `store_meta`), branch for branch
+    against tcnerf/train/grasp_common.py on the same files and the same
+    tiny language model: the same loaded / not-loaded outcome and weights
+    (bit for bit), the same errors by type, and a warning where JAX
+    warns. Branches: no backbone (seeded, or FileNotFoundError under
+    require_backbone); the bare backbone; under fusion no decoder file, a
+    decoder of other keys (ValueError caught), a matching one, a sidecar of
+    fusion "without", of the wrong flavour (ValueError under
+    require_backbone) and of the language flavour; resume without files,
+    with the grasp components alone and with the decoder too."""
+    from tcnerf.models import checkpoint as jckpt
+    from tcnerf.train import grasp_common as jcommon
+    from tcnerf_torch.params import from_flax, to_flax
+    base = TINY + CLIP_TINY + [f"data_dir={tmp_path}"]
+    cfg = config.load_config(base, "language_1_view")
     strict = config.load_config(
-        TINY + [f"data_dir={tmp_path}",
-                "+grasp_training.require_backbone=true"], "goal_1_view")
-    with pytest.raises(FileNotFoundError):
-        grasp_common.load_backbone(model, strict)
-    for what, path, fn in (
-            ("backbone", cfg.grasp_training.backbone_path,
-             grasp_common.load_backbone),
-            ("grasp model", cfg.grasp_training.model_path,
-             grasp_common.resume_or_init)):
-        for suffix in (".msgpack", ".index"):
-            os.makedirs(path, exist_ok=True)
-            f = os.path.join(path, "model_final_fine_embedding" + suffix)
-            open(f, "wb").close()
-            with pytest.raises(NotImplementedError, match=what):
-                fn(model, cfg)
-            os.remove(f)
-    open(os.path.join(cfg.grasp_training.model_path,
-                      "training_progress.json"), "w").write("{}")
-    with pytest.raises(NotImplementedError, match="training_progress"):
-        grasp_common.resume_or_init(model, cfg)
+        base + ["+grasp_training.require_backbone=true"], "language_1_view")
+    comps = ("fine_embedding", "visual_features", "combine_clip_visual",
+             "grasp_readout")
+    source = grasp_common.build_grasp_model(
+        config.load_config(base + ["seed=5"], "language_1_view"),
+        fusion="v4", device="cpu")
+    files = {c: to_flax(getattr(source, c)) for c in comps}
+    backbone = os.path.join(cfg.grasp_training.backbone_path, "model_final")
+    final = os.path.join(cfg.grasp_training.model_path, "model_final")
+
+    def run(fn, fusion=None):
+        """fn in both packages on fresh models: (loaded, the components
+        that now hold the files' weights, whether the port warned)."""
+        model = grasp_common.build_grasp_model(cfg, fusion="v4",
+                                               device="cpu")
+        jstate = _JState({k: to_flax(getattr(model, k)) for k in comps})
+        caplog.clear()
+        with caplog.at_level("INFO"):
+            if fn == "backbone":
+                m, loaded = grasp_common.load_backbone(model, cfg, fusion)
+                jstate, jloaded = jcommon.load_backbone(jstate, cfg, fusion)
+                assert m is model and loaded == jloaded
+            else:
+                assert grasp_common.resume_or_init(
+                    model, cfg, ("combine_clip_visual",)) is model
+                jstate = jcommon.resume_or_init(jstate, cfg,
+                                                ("combine_clip_visual",))
+                loaded = None
+        which = set()
+        for k in comps:
+            got = getattr(model, k).state_dict()
+            want = from_flax(jstate.params[k], dtype=None)
+            assert all(torch.equal(got[n], want[n]) for n in want), k
+            if all(torch.equal(got[n], v) for n, v in
+                   from_flax(files[k], dtype=None).items()):
+                which.add(k)
+        warned = any(r.levelname == "WARNING" for r in caplog.records)
+        return loaded, which, warned
+
+    def both_raise(error, match, *args):
+        model = grasp_common.build_grasp_model(cfg, fusion="v4",
+                                               device="cpu")
+        jstate = _JState({k: to_flax(getattr(model, k)) for k in comps})
+        for fn, state in ((grasp_common.load_backbone, model),
+                          (jcommon.load_backbone, jstate)):
+            with pytest.raises(error, match=match):
+                fn(state, strict, *args)
+
+    bare = {"fine_embedding", "visual_features"}
+    assert run("backbone", False) == (False, set(), True)
+    assert run("backbone", True) == (False, set(), True)
+    both_raise(FileNotFoundError, "require_backbone")
+    jckpt.store(backbone, files, ("fine_embedding", "visual_features"))
+    assert run("backbone", False) == (True, bare, False)
+    assert run("backbone", True) == (True, bare, True)
+    jckpt.store(backbone, {"combine_clip_visual": files["fine_embedding"]},
+                ("combine_clip_visual",))
+    assert run("backbone", True) == (True, bare, True)
+    jckpt.store(backbone, files, ("combine_clip_visual",))
+    assert run("backbone", True) == (True, bare | {"combine_clip_visual"},
+                                     False)
+    flavour = {"fusion": "v4", "fusion_use_dense": True,
+               "fusion_activation": "elu", "field": "pixel"}
+    for meta, want in (({"fusion": "without"}, (True, bare, True)),
+                       ({"fusion_use_dense": False,
+                         "fusion_activation": "relu"}, (True, bare, True)),
+                       ({}, (True, bare | {"combine_clip_visual"}, False))):
+        jckpt.store_meta(backbone, {**flavour, **meta})
+        assert run("backbone", True) == want, meta
+    jckpt.store_meta(backbone, {**flavour, "fusion_activation": "relu"})
+    both_raise(ValueError, "flavor", True)
+    assert run("resume") == (None, set(), False)
+    jckpt.store(final, files, ("fine_embedding", "visual_features",
+                               "grasp_readout"))
+    assert run("resume") == (None, set(comps) - {"combine_clip_visual"},
+                             False)
+    jckpt.store(final, files, ("combine_clip_visual",))
+    assert run("resume") == (None, set(comps), False)

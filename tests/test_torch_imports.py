@@ -1,5 +1,6 @@
 """The port stands alone: no module of tcnerf_torch/ and not chip_smoke.py
-imports JAX, flax, optax or the JAX package (tcnerf)."""
+imports JAX, flax, optax, msgpack, tensorflow or the JAX package
+(tcnerf)."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "tcnerf_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-BANNED = {"jax", "jaxlib", "flax", "optax", "tcnerf"}
+BANNED = {"jax", "jaxlib", "flax", "optax", "msgpack", "tensorflow",
+          "tcnerf"}
 
 
 def _imported_roots(tree):
@@ -63,14 +65,22 @@ def test_grasp_training_modules_are_covered():
         assert name in MODULES, name
 
 
+def test_checkpoint_modules_are_covered():
+    """The checkpoint modules are among the files checked above."""
+    for name in ("tcnerf_torch.models.msgpack_codec",
+                 "tcnerf_torch.models.tf_checkpoint",
+                 "tcnerf_torch.models.checkpoint", "tcnerf_torch.params"):
+        assert name in MODULES, name
+
+
 def test_every_module_imports_with_jax_blocked():
     """Every module of the port imports in a fresh interpreter in which
-    JAX, flax, optax and the JAX package cannot be imported at all (not
-    even through another module)."""
+    JAX, flax, optax, msgpack, tensorflow and the JAX package cannot be
+    imported at all (not even through another module)."""
     import subprocess
     import sys
     code = ("import importlib, sys\n"
-            "for m in ('jax', 'jaxlib', 'flax', 'optax', 'tcnerf'):\n"
+            f"for m in {sorted(BANNED)!r}:\n"
             "    sys.modules[m] = None\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n")
