@@ -38,7 +38,14 @@ files (`phase_checkpoint`): a stage-1 run stored and resumed, a view
 served from its file, `train_goal` on that backbone and resumed,
 `GraspPipeline.from_checkpoints`, `train_language` on the v4-elu
 checkpoint and the TF bundle layout, each bit for bit, with every file's
-store and load times; all checkpoints go under one temporary directory
+store and load times. Last the hash-grid field (`phase_hashgrid`, at the
+JAX configs' width): `nerf_convergence_hashgrid` trained 8 steps through
+`train_nerf` (held-out view never drawn, `model_final` resumed bit for
+bit, a step card vs CPU), its held-out view served on the plain path at
+chunks 512 and 8192 (a chunk card vs CPU), `dngf_hashgrid` trained 2
+steps through `train_delta_ngf` with its tables, and served through
+`GraspPipeline.from_checkpoints` of that run's files; no chain kernel
+launches there. All checkpoints go under one temporary directory
 outside the repository, removed at the end. The last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
 Imports torch and the port only.
@@ -46,7 +53,10 @@ Imports torch and the port only.
 
 from __future__ import annotations
 
+import copy
+import functools
 import json
+import os
 import shutil
 import sys
 import tempfile
@@ -1472,7 +1482,7 @@ def check_grasp_on_cpu(opt, scene, features, tag, n=64):
 
 
 def phase_grasp(dev, card, name="goal_1_view", text=None, fusion=None,
-                sync=True):
+                sync=True, model_dir=None, trained=None):
     """`GraspPipeline.infer` on `name` at full width (ViT-B/16 224^2,
     n_features 256, hidden 128, 6 blocks, 480x640; 7 5-d poses = 42
     probes; the language config adds the CLIP RN50 and text towers and the
@@ -1484,7 +1494,10 @@ def phase_grasp(dev, card, name="goal_1_view", text=None, fusion=None,
     `energy` of the returned poses; 64 guesses' energies and pose
     gradients on the card against the CPU. Prints the encode ms, the ms
     per ascent step, the infer wall, guesses x steps / s, the peak memory
-    and one profiled ascent step."""
+    and one profiled ascent step. With `model_dir` the pipeline is
+    `GraspPipeline.from_checkpoints` of that grasp run's `model_final` on
+    a seeded model, whose grasp components must then equal `trained` (a
+    state dict) bit for bit."""
     import numpy as np
     import torch
     from tcnerf_torch.models.pipeline import GraspPipeline
@@ -1498,21 +1511,37 @@ def phase_grasp(dev, card, name="goal_1_view", text=None, fusion=None,
     rep = cfg.grasp_model.get("rotation_representation", "quaternion")
     model = build_grasp_model(cfg, fusion=fusion, device=dev)
     workspace = cfg.generator_grasp.workspace_bounds
-    pipe = GraspPipeline(
-        model=model, params=None, workspace_bounds=workspace,
+    make = (functools.partial(GraspPipeline, params=None)
+            if model_dir is None else functools.partial(
+                GraspPipeline.from_checkpoints, model_dir=str(model_dir)))
+    pipe = make(
+        model=model, workspace_bounds=workspace,
         n_initial_guesses=opt_cfg.n_initial_guesses,
         n_images=opt_cfg.n_images, rotation_representation=rep,
         clip_translation=opt_cfg.clip_translation,
         n_optimization_steps=sched.n_optimization_steps,
         init_lr_t=sched.init_lr_t, init_lr_r=sched.init_lr_r,
         decay_t=sched.decay_t, decay_r=sched.decay_r, sync=sync)
+    if trained is not None:
+        from tcnerf_torch.models import checkpoint as ckpt
+        got = model.state_dict()
+        keys = [k for k in got if k.split(".", 1)[0] in ckpt.GRASP_COMPONENTS]
+        bad = [k for k in keys if not torch.equal(got[k], trained[k])]
+        print(f"check grasp {name} from_checkpoints: {len(keys) - len(bad)}"
+              f" of {len(keys)} tensors of the grasp components (hash_tables"
+              f" {'hash_tables' in keys}) bit for bit the trained model's "
+              f"{'OK' if keys and not bad else 'FAIL'}")
+        if bad or not keys:
+            raise AssertionError(f"grasp {name}: from_checkpoints restored "
+                                 f"other tensors, e.g. {bad[:3]}")
     scene = grasp_scene(opt_cfg.n_images, seed=2)
     n, steps = opt_cfg.n_initial_guesses, sched.n_optimization_steps
     n_steps = steps * (1 if sync else 2)
     print(f"grasp {name}: {n} guesses x {n_steps} steps "
           f"({'synchronized' if sync else 'alternating t / r'}), "
           f"{opt_cfg.n_images} images, {model.n_probes} probes, {rep}, "
-          f"readout {'goal' if fusion is None else 'dngf'} flavour"
+          f"readout {cfg.grasp_training.get('readout_flavor', 'dngf')} "
+          f"flavour"
           + (f", prompt {text!r}" if text else "") + "; seeded weights")
     _, t_first = timed(lambda: pipe.infer(*scene, text=text, rng=0))
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1616,19 +1645,21 @@ def _moved(batch, dev, dtype=None):
     return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
 
-def grasp_train_grads(base, name, inputs, labels, dev, dtype, take=None):
-    """One step's metrics and readout gradients (before clipping, flat,
-    f64 on the CPU) of a copy of `base` on `dev` in `dtype`: the goal step
-    (kl_divergence, mean) for goal_1_view, the delta-NGF step
-    (cross-entropy, quaternions) otherwise; and the sides of 0 of every
-    relu input (`relu_sides`; with `take` the relus take those)."""
+def grasp_train_grads(base, name, inputs, labels, dev, dtype, take=None,
+                      trainable=("grasp_readout",)):
+    """One step's metrics and the `trainable` components' gradients (before
+    clipping, flat, f64 on the CPU) of a copy of `base` on `dev` in
+    `dtype`: the goal step (kl_divergence, mean) for goal_1_view, the
+    delta-NGF step (cross-entropy, quaternions) otherwise; and the sides of
+    0 of every relu input (`relu_sides`; with `take` the relus take
+    those)."""
     import copy
 
     import torch
     from tcnerf_torch.models import grasp_training as GT
 
     m = copy.deepcopy(base).to(device=dev, dtype=dtype)
-    state = GT.create_grasp_train_state(m)
+    state = GT.create_grasp_train_state(m, trainable=trainable)
     i, lab = _moved(inputs, dev, dtype), _moved(labels, dev, dtype)
     with relu_sides(None, take) as sides:
         if name == "goal_1_view":
@@ -1641,18 +1672,22 @@ def grasp_train_grads(base, name, inputs, labels, dev, dtype, take=None):
             sides.sides)
 
 
-def check_grasp_train_on_cpu(dev, card, data_dir):
+def check_grasp_train_on_cpu(dev, card, data_dir,
+                             names=("goal_1_view", "dngf_1_view"),
+                             trainable=("grasp_readout",), own_tol=1e-3):
     """One goal step (kl_divergence, mean) and one delta-NGF step
-    (dngf_1_view: cross-entropy, quaternions) of one sample with 64
-    landscape (and 64 gradient) poses at full width, on the card against
-    the same model on the CPU, from the same seeded weights and batch. f64
-    on both sides: the metrics and the readout's gradients before clipping
-    within 1e-8 relative (of max |cpu| for the gradients). f32: at most
+    (dngf_1_view, or `names`' other configs: cross-entropy, quaternions)
+    of one sample with 64 landscape (and 64 gradient) poses at full width,
+    on the card against the same model on the CPU, from the same seeded
+    weights and batch. f64 on both sides: the metrics and the `trainable`
+    components' gradients before clipping within 1e-8 relative (of max
+    |cpu| for the gradients). f32: at most
     1e-5 of the relu inputs on the other side of 0 on card and CPU; the
     metrics within 1e-4 relative of the CPU run made to take the card's
     relu branches (the delta-NGF losses are functions of the pose
     gradient, which jumps where a relu input changes side: ROADMAP Queue
-    C) and within 1e-3 relative of the CPU's own run; and of the gradients
+    C) and within `own_tol` (1e-3; None: printed, not held) relative of
+    the CPU's own run; and of the gradients
     against the CPU's own branches, fewer than 1% of the entries beyond
     1e-3 x max |cpu| and the median error below 1e-4 x max |cpu| (the
     count is printed)."""
@@ -1664,7 +1699,7 @@ def check_grasp_train_on_cpu(dev, card, data_dir):
     from tcnerf_torch.train.grasp_common import build_grasp_model
 
     cpu = torch.device("cpu")
-    for name in ("goal_1_view", "dngf_1_view"):
+    for name in names:
         cfg = config.load_config([], name)
         ws = cfg.generator_grasp.workspace_bounds
         if name == "goal_1_view":
@@ -1680,14 +1715,16 @@ def check_grasp_train_on_cpu(dev, card, data_dir):
         base = build_grasp_model(cfg, device=dev)
         for dtype in (torch.float64, torch.float32):
             f64 = dtype == torch.float64
-            mg, gg, sides = grasp_train_grads(base, name, *batch, dev, dtype)
-            mc, gc, own = grasp_train_grads(base, name, *batch, cpu, dtype)
+            mg, gg, sides = grasp_train_grads(base, name, *batch, dev, dtype,
+                                              trainable=trainable)
+            mc, gc, own = grasp_train_grads(base, name, *batch, cpu, dtype,
+                                            trainable=trainable)
             if f64:
                 m64 = mg
             held = mc
             if not f64:
                 held = grasp_train_grads(base, name, *batch, cpu, dtype,
-                                         take=sides)[0]
+                                         take=sides, trainable=trainable)[0]
                 flips = sum(int((a != b).sum()) for a, b in zip(sides, own))
                 total = sum(a.numel() for a in sides)
                 ok = flips <= 1e-5 * total
@@ -1704,10 +1741,11 @@ def check_grasp_train_on_cpu(dev, card, data_dir):
                 # the pose gradient, which jumps where a relu input changes
                 # side and is ill-conditioned in f32 (the port's f32 bar)
                 own_rel = 0.0 if f64 else abs(mg[k] - mc[k]) / abs(mc[k])
-                ok = rel <= tol and own_rel <= 1e-3
+                ok = rel <= tol and (own_tol is None or own_rel <= own_tol)
                 own_err = ("" if f64 else f"; the CPU on its own branches: "
                            f"{mc[k]:.10g}, err {own_rel:.3g} relative (limit "
-                           f"1e-3); f32 from the f64 value: card "
+                           f"{own_tol or 'none: printed'}); f32 from the f64 "
+                           f"value: card "
                            f"{abs(mg[k] - m64[k]) / abs(m64[k]):.3g}, CPU "
                            f"{abs(mc[k] - m64[k]) / abs(m64[k]):.3g} "
                            f"relative")
@@ -1722,17 +1760,19 @@ def check_grasp_train_on_cpu(dev, card, data_dir):
             scale = float(gc.abs().max())
             err = (gg - gc).abs()
             if f64:
-                compare(f"grasp train {name} f64 readout gradients "
-                        f"({gc.numel()} entries), card vs CPU", gg, gc, 1e-8,
+                compare(f"grasp train {name} f64 {'+'.join(trainable)} "
+                        f"gradients ({gc.numel()} entries), card vs CPU", gg,
+                        gc, 1e-8,
                         "one sample, 64 landscape poses, before clipping")
                 continue
             beyond = int((err > 1e-3 * scale).sum())
             median = float(err.median()) / scale
             ok = (bool(torch.isfinite(gg).all())
                   and beyond < 0.01 * gc.numel() and median < 1e-4)
-            print(f"check grasp train {name} f32 readout gradients, card vs "
-                  f"CPU: {beyond} of {gc.numel()} entries beyond 1e-3 x "
-                  f"max|cpu| {scale:.6g} (limit 1%), max err "
+            print(f"check grasp train {name} f32 {'+'.join(trainable)} "
+                  f"gradients, card vs CPU: {beyond} of {gc.numel()} "
+                  f"entries beyond 1e-3 x max|cpu| {scale:.6g} (limit 1%), "
+                  f"max err "
                   f"{float(err.max()):.6g}, median err {median:.3g} x "
                   f"max|cpu| (limit 1e-4) {'OK' if ok else 'FAIL'} [{card}]")
             if not ok:
@@ -2269,6 +2309,306 @@ def phase_checkpoint(dev, card, launches, root, scene, fused_final):
           f"[{card}]")
 
 
+# nerf_convergence_hashgrid cut to one fit round of 8 one-scene steps
+HASHGRID_CUT = ["nerf_training.n_epochs=8",
+                "nerf_training.eval_after_epochs=8"]
+
+
+def draw_log(rng, pool):
+    """A numpy Generator on `rng`'s bit generator (the same stream) that
+    records in `.drawn` the perspectives drawn from `pool` (its `choice`
+    of that array)."""
+    import numpy as np
+
+    class DrawLog(np.random.Generator):
+        def choice(self, a, *args, **kw):
+            out = super().choice(a, *args, **kw)
+            if a is pool:
+                self.drawn.extend(int(v) for v in out)
+            return out
+
+    log = DrawLog(rng.bit_generator)
+    log.drawn = []
+    return log
+
+
+def check_grads_on_cpu(tag, model, loss_fn, tol=1e-3):
+    """loss_fn(model, device) on the card and on a CPU copy of `model`: the
+    loss within `tol` relative, each parameter's gradient within `tol` x
+    its max |cpu|."""
+    import copy
+
+    import torch
+    out = []
+    for m, d in ((model, next(model.parameters()).device),
+                 (copy.deepcopy(model).cpu(), torch.device("cpu"))):
+        m.zero_grad(set_to_none=True)
+        loss = loss_fn(m, d)
+        loss.backward()
+        out.append((float(loss.detach()), {n: p.grad.detach().cpu()
+                                  for n, p in m.named_parameters()}))
+        m.zero_grad(set_to_none=True)
+    (lg, gg), (lc, gc) = out
+    rel = abs(lg - lc) / abs(lc)
+    worst = max((float((gg[n] - gc[n]).abs().max())
+                 / max(float(gc[n].abs().max()), 1e-30), n) for n in gc)
+    ok = rel <= tol and worst[0] <= tol
+    print(f"check {tag}, card vs CPU: loss {lg:.8g} / {lc:.8g} (err "
+          f"{rel:.3g} relative), gradients of {len(gc)} tensors: largest "
+          f"error {worst[0]:.3g} x the tensor's max|cpu| ({worst[1]}); limit"
+          f" {tol} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: card and CPU disagree")
+
+
+def phase_hashgrid(dev, card, launches, root):
+    """The hash-grid field at the JAX configs' width (16 levels of 2^14 x 2
+    f32 tables, base 16, finest 512; a 3-layer, 64-wide relu MLP on the 32
+    + 3 inputs), with the counts set to 0 before and read after:
+
+    * stage-1: `train_nerf._main` on `nerf_convergence_hashgrid` (one
+      synthetic scene of 16 480x640 perspectives, 4096 rays of 64 + 64
+      samples, near 0.55, far 1.8, the trainer's 32 chunks of 128 rays,
+      lr 1e-2), cut to HASHGRID_CUT (8 steps); the held-out target view
+      never drawn, the tables moved, finite losses, `model_final` resumed
+      bit for bit, one step card vs CPU (1e-3), a profiled step;
+    * serving: `render_view` 480x640 of the held-out view on the plain
+      path at chunk 512 (the default) and 8192, one 8192-ray chunk card vs
+      CPU (f32, 1e-3), a profiled render at each chunk (the whole view at
+      8192, its top 16 rows at 512);
+    * grasp training: `train_delta_ngf` on `dngf_hashgrid` (batch 8, the
+      tables and the readout training; GRASP_TRAIN_CUT: 2 steps), the
+      backbone bit-identical, one step card vs CPU
+      (`check_grasp_train_on_cpu`);
+    * grasp serving: `GraspPipeline.from_checkpoints` on that run's files,
+      `infer` with 4096 guesses and the config's validation schedule
+      (`phase_grasp`, its checks).
+
+    No chain kernel lies on this path (JAX's hash-grid renderer skips the
+    corner image and the chain): K1, K1', K2 and K3 must count 0."""
+    import numpy as np
+    import torch
+    from tcnerf_torch.data.generators import to_device
+    from tcnerf_torch.data.loaders import load_dataset_nerf
+    from tcnerf_torch.models import inference, training as T
+    from tcnerf_torch.train import config, train_delta_ngf, train_nerf
+    from tcnerf_torch.train.grasp_common import build_grasp_model
+
+    reset_counts()
+    t_phase = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"hashgrid part {what}: {now - t_phase[0]:.1f} s [{card}]")
+        t_phase[0] = now
+
+    data = REPO / "build" / "chip_smoke_hashgrid"
+    cfg = config.load_config([f"data_dir={root / 'hashgrid'}",
+                              f"dataset.path={data}", *HASHGRID_CUT],
+                             "nerf_convergence_hashgrid")
+    nm, nt = cfg.nerf_model, cfg.nerf_training
+    held_out = cfg.valid_perspective_tgt_idx
+    print(f"hashgrid stage 1: nerf_convergence_hashgrid at full width "
+          f"({nm.hashgrid_levels} levels x 2^{nm.hashgrid_table_log2} x 2, "
+          f"MLP {nm.hashgrid_layers} x {nm.hashgrid_hidden}, "
+          f"{nm.n_rays_train} rays x {nm.n_samples} + {nm.n_samples} "
+          f"samples, 480x640, lr {nt.learning_rate}), f32, seeded weights; "
+          f"1 scene x {cfg.dataset.n_perspectives} perspectives, view "
+          f"{held_out} held out; cut: {HASHGRID_CUT}")
+    logs = []
+
+    class Logged(train_nerf.MVNeRFDataGenerator):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.rng = draw_log(self.rng, self.perspective_pool)
+            logs.append(self.rng)
+
+    original = train_nerf.MVNeRFDataGenerator
+    train_nerf.MVNeRFDataGenerator = Logged
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        (state, history), wall = timed(lambda: train_nerf._main(cfg, dev))
+    finally:
+        train_nerf.MVNeRFDataGenerator = original
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps, model = history["steps"], state.model
+    print(f"hashgrid stage 1 run: {len(steps)} steps + "
+          f"{len(history['valid'])} validation renders in {wall:.1f} s "
+          f"(dataset synthesis included); peak memory allocated "
+          f"{peak / 2 ** 30:.2f} GiB [{card}]")
+    for st in steps:
+        print(f"hashgrid train step {st['step']}: loss {st['loss']:.6f}, "
+              f"{st['step_s'] * 1e3:.1f} ms (waiting for the prefetched "
+              f"batch {st['data_s'] * 1e3:.1f} ms) [{card}]")
+    if len(steps) != 8 or not all(np.isfinite(st["loss"]) for st in steps):
+        raise AssertionError("hashgrid stage 1: not 8 finite steps")
+    steady = float(np.median([st["step_s"] for st in steps[1:]]))
+    rays = nm.n_rays_train * nt.batch_size
+    print(f"hashgrid train step after the first (median): "
+          f"{steady * 1e3:.1f} ms, {rays / steady:.0f} rays/s [{card}]")
+    for epoch, value in history["valid"]:
+        print(f"hashgrid validation (held-out view {held_out}) after epoch "
+              f"{epoch}: PSNR {value:.3f} dB")
+    drawn = sorted(set(logs[0].drawn))
+    ok = bool(drawn) and held_out not in drawn
+    print(f"check hashgrid held-out view: the generator drew perspectives "
+          f"{drawn} ({len(logs[0].drawn)} draws), never {held_out} "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("hashgrid: the held-out view was drawn")
+    seeded = train_nerf.build_model(cfg, dev)
+    moved = [n for n, p in model.named_parameters()
+             if not torch.equal(p.detach(), seeded.state_dict()[n])]
+    print(f"check hashgrid trained tensors: {len(moved)} of "
+          f"{len(seeded.state_dict())} moved, the tables among them "
+          f"{'OK' if 'fine_embedding.hash_tables' in moved else 'FAIL'}")
+    if "fine_embedding.hash_tables" not in moved:
+        raise AssertionError("hashgrid: the tables did not train")
+    train_nerf.init_weights(seeded, cfg)       # model_final, in place
+    n = _same_tensors(seeded, model.state_dict(), "hashgrid resume")
+    print(f"check hashgrid model_final: {n} tensors "
+          f"({sorted(os.listdir(nt.model_path))}) loaded bit for bit OK")
+    del seeded
+    lap("stage-1 run and its checks")
+
+    ds = load_dataset_nerf(cfg.dataset.n_perspectives, f"{data}/train")
+    gen = train_nerf.MVNeRFDataGenerator(
+        ds, n_rays_train=nm.n_rays_train, batch_size=1, n_views=1, rng=5,
+        exclude_perspectives=(held_out,))
+    batch = to_device(*gen[0], dev)
+    draws = T.draw_samples(model, 1, nm.n_rays_train,
+                           torch.Generator(device=dev).manual_seed(7), dev)
+    check_grads_on_cpu(
+        f"hashgrid train step ({nm.n_rays_train} rays in chunks of 128)",
+        model, lambda m, d: T.nerf_loss(
+            m, tuple(x.to(d) for x in batch[0]), batch[1].to(d),
+            *(u.to(d) for u in draws)))
+    print("hashgrid profiled train step:")
+    device_time_by_kernel(
+        lambda: T.nerf_train_step(state, *batch,
+                                  torch.Generator(device=dev).manual_seed(8)),
+        card, top=10)
+    lap("stage-1 step card vs CPU, profiled step")
+
+    valid = train_nerf.load_validation(cfg, ds)
+    scene = (valid["src_colors"][0], valid["src_camera_configs"][0],
+             valid["tgt_camera_config"])
+    model.eval()
+    src_t, k4, ext, pose, k3 = scene_tensors(scene, dev)
+    empty = torch.zeros((1, 1, 1, 1, 0), device=dev)
+    # chunk 512 (the default) once: nothing compiles, and the stage-1
+    # validations rendered it twice already; chunk 8192 after a first call
+    for chunk, calls in ((512, 1), (8192, 2)):
+        view = view_fn(model, scene, dev, chunk=chunk)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(calls):
+            (rgb, depth), t = timed(view)
+        peak = torch.cuda.max_memory_allocated(dev)
+        if rgb.shape != (H, W, 3) or depth.shape != (H, W, 1):
+            raise AssertionError(f"hashgrid view shapes {rgb.shape}")
+        value = float(np.mean((rgb / 255.0 - valid["tgt_colors"][..., :3]
+                               / 255.0) ** 2))
+        print(f"hashgrid serve (plain path, chunk {chunk}): view "
+              f"{t * 1e3:.1f} ms, {H * W / t:.0f} rays/s, peak memory "
+              f"allocated {peak / 2 ** 30:.2f} GiB, PSNR against the "
+              f"held-out view {-10 * np.log10(max(value, 1e-12)):.3f} dB "
+              f"[{card}]")
+        # the profiler's own cost grows with the launches: at chunk 512 a
+        # strip of the view's top 16 rows (20 chunks), the same loop
+        rows = H if chunk == 8192 else 16
+        print(f"hashgrid profiled render at chunk {chunk}, the top {rows} "
+              f"rows of the view:")
+        with torch.inference_mode():
+            device_time_by_kernel(lambda: inference.render_all_rays(
+                model, src_t, k4, ext, empty, pose, k3, rows, W, chunk,
+                generator=torch.Generator(device=dev).manual_seed(1)),
+                card, top=6)
+        lap(f"serving at chunk {chunk}")
+    ro, rd, u_c, u_f = middle_chunk(pose, k3, dev)
+    outs = []
+    for m, d in ((model, dev), (copy.deepcopy(model).cpu(),
+                                torch.device("cpu"))):
+        with torch.no_grad():
+            outs.append([x.cpu() for x in m.render_rays(
+                ro.to(d), rd.to(d), src_t.to(d), k4.to(d), ext.to(d),
+                empty.to(d), u_coarse=u_c.to(d), u_fine=u_f.to(d))])
+    for label, got, want in zip(("rgb", "depth", "fine_rgb", "fine_depth"),
+                                *outs):
+        compare(f"hashgrid serve chunk {label} ({CHUNK} rays), card vs CPU",
+                got, want, 1e-3, "f32, the same draws")
+    del model, state, outs
+    torch.cuda.empty_cache()
+    lap("serving chunk card vs CPU")
+
+    gcfg = config.load_config(
+        [f"dataset.path={REPO / 'build' / 'chip_smoke_grasp' / 'grad'}",
+         f"grasp_training.model_path={root / 'hashgrid_grasp'}",
+         f"grasp_training.backbone_path={root / 'no_backbone'}",
+         *GRASP_TRAIN_CUT], "dngf_hashgrid")
+    gm = gcfg.grasp_model
+    print(f"hashgrid grasp train: dngf_hashgrid (hash stream {gm.hash_levels}"
+          f" x 2^{gm.hash_size_log2} x {gm.hash_features} over the "
+          f"workspace, tables trained with the readout), batch "
+          f"{gcfg.grasp_training.batch_size}, full width, f32, seeded "
+          f"weights; cut: {GRASP_TRAIN_CUT}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    run_, wall = timed(lambda: train_delta_ngf.run_delta_training(
+        gcfg, device=dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    gsteps = run_.history["steps"]
+    for k, st in enumerate(gsteps):
+        metrics = ", ".join(f"{m} {v:.6f}" for m, v in st.items()
+                            if m not in ("data_s", "step_s"))
+        print(f"hashgrid grasp train step {k + 1}: {metrics}; "
+              f"{st['step_s'] * 1e3:.1f} ms (waiting for the prefetched "
+              f"batch {st['data_s'] * 1e3:.1f} ms) [{card}]")
+    if len(gsteps) != 2 or not all(np.isfinite(v) for st in gsteps
+                                   for v in st.values()):
+        raise AssertionError("hashgrid grasp train: not 2 finite steps")
+    print(f"hashgrid grasp train run: {wall:.1f} s with "
+          f"{len(run_.history['valid'])} validations; peak memory allocated"
+          f" {peak / 2 ** 30:.2f} GiB [{card}]")
+    seeded = build_grasp_model(gcfg, device=dev)
+    trained = run_.state.model.state_dict()
+    frozen = [k for k in trained if k.split(".", 1)[0] not in
+              ("grasp_readout", "hash_tables")]
+    same = sum(torch.equal(trained[k], seeded.state_dict()[k])
+               for k in frozen)
+    tables = not torch.equal(trained["hash_tables"], seeded.hash_tables)
+    ok = same == len(frozen) and tables and "hash_tables" in run_.state.names
+    print(f"check hashgrid grasp train: {same} of {len(frozen)} backbone "
+          f"tensors bit-identical to the seeded ones; the tables moved "
+          f"{tables} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("hashgrid grasp train: frozen tensors moved or "
+                             "the tables did not")
+    trained = {k: v.clone() for k, v in trained.items()}
+    del run_, seeded
+    torch.cuda.empty_cache()
+    lap("grasp training")
+    # the f32 cosine losses read the pose gradient, which is ill-conditioned
+    # in f32 (ROADMAP Queue C): held on the card's relu branches; the CPU's
+    # own f32 run is printed beside its f64 distance
+    check_grasp_train_on_cpu(dev, card, REPO / "build" / "chip_smoke_grasp",
+                             names=("dngf_hashgrid",),
+                             trainable=("grasp_readout", "hash_tables"),
+                             own_tol=None)
+    lap("grasp train step card vs CPU")
+    phase_grasp(dev, card, "dngf_hashgrid", model_dir=root / "hashgrid_grasp",
+                trained=trained)
+    lap("grasp serving")
+    counts = read_counts()
+    for k, key in CHAIN_COUNTS.items():
+        launches[f"{k} hashgrid"] = counts.get(key, 0)
+    got = {k: counts.get(key, 0) for k, key in CHAIN_COUNTS.items()}
+    print(f"hashgrid launches of the chain kernels on the path: {got} (the "
+          f"hash-grid field reads no image: no corner image, no chain) "
+          f"{'OK' if not any(got.values()) else 'FAIL'}")
+    if any(got.values()):
+        raise AssertionError("a chain kernel launched on the hash-grid path")
+
+
 KERNELS = {
     "K1": dict(name="resmlp_rows", source="tcnerf_torch/csrc/resmlp.cu",
                replaces="tcnerf/ops/pallas/resmlp.py:137",
@@ -2342,6 +2682,8 @@ def main(argv) -> int:
         timed_stores(lambda: phase_checkpoint(dev, card, launches, root,
                                               scene, fused_final),
                      "phase_checkpoint", card)
+        timed_stores(lambda: phase_hashgrid(dev, card, launches, root),
+                     "phase_hashgrid", card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rows = []

@@ -78,14 +78,20 @@ class MVNeRFDataGenerator(DataGenerator):
     one target view drawn without replacement, and n_rays_train target
     pixels (80% inside the image box, the reference's bbox-biased draw).
     Returns ((ray_o [B, R, 3], ray_d, src [B, V, H, W, 3] in [0, 1],
-    intrinsics [B, V, 4, 4], extrinsics_inv [B, V, 4, 4]), rgb [B, R, 3])."""
+    intrinsics [B, V, 4, 4], extrinsics_inv [B, V, 4, 4]), rgb [B, R, 3]).
+    The views come from `perspective_pool`, every perspective but
+    `exclude_perspectives` (a per-scene field's held-out validation view),
+    with the JAX generator's draws for a seed."""
 
     def __init__(self, dataset, n_rays_train=512, batch_size=1, n_views=2,
-                 **kwargs):
+                 exclude_perspectives=(), **kwargs):
         super().__init__(dataset, batch_size, **kwargs)
         self.n_rays_train = n_rays_train
         self.n_views = n_views
         self.n_perspectives = self.dataset.datasets["color"].n_perspectives
+        self.perspective_pool = np.setdiff1d(
+            np.arange(self.n_perspectives),
+            np.asarray(exclude_perspectives, dtype=np.int64))
 
     def generate_rays(self, color, camera_config):
         intr3 = np.reshape(camera_config["intrinsics"],
@@ -116,7 +122,7 @@ class MVNeRFDataGenerator(DataGenerator):
         colors = self.dataset.datasets["color"]
         cameras = self.dataset.datasets["camera_config"]
         for i in batch:
-            indices = self.rng.choice(np.arange(self.n_perspectives),
+            indices = self.rng.choice(self.perspective_pool,
                                       size=self.n_views + 1, replace=False)
             src_indices, tgt_index = indices[:-1], indices[-1]
             tgt_color = colors.read_sample_at_idx(i, tgt_index)[..., :3]

@@ -14,9 +14,13 @@ load too, and `store_tf` writes them.
         ...                                          # nothing was changed
 
 A component is a submodule of the model of that name (`fine_embedding`,
-`visual_features`, ...); names the model lacks (`hash_tables` on a grasp
-model without the hash grid, `combine_clip_visual` on a "without"
-renderer) are skipped by `store` and `load` alike. `load` copies into the
+`visual_features`, ...) or a parameter of it (a hash-grid grasp model's
+`hash_tables`, which flax writes as one top-level array); names the model
+lacks (`hash_tables` on a grasp model without the hash grid,
+`combine_clip_visual` on a "without" renderer) are skipped by `store` and
+`load` alike. A one-array component has no TF-bundle layout: `store_tf`
+and `load_tf` raise on it, as the JAX package's do (its keras key walk
+takes a map), after the components before it. `load` copies into the
 model's own tensors under `torch.no_grad()` (each on its device and in its
 dtype), so parameter objects and the optimizers that hold them stay valid;
 it checks every key and shape of every component first and raises
@@ -61,7 +65,15 @@ def component_path(path: str, component: str, suffix: str = SUFFIX) -> str:
 def _present(model: nn.Module, components: Iterable[str]) -> List[str]:
     """The listed components the model has, in order."""
     return [c for c in components
-            if isinstance(getattr(model, c, None), nn.Module)]
+            if isinstance(getattr(model, c, None), (nn.Module, nn.Parameter))]
+
+
+def _state(component) -> Dict[str, torch.Tensor]:
+    """A component's tensors by `from_flax` key: a module's state dict,
+    `{"": parameter}` for a one-array component."""
+    if isinstance(component, nn.Module):
+        return component.state_dict(keep_vars=True)
+    return {"": component}
 
 
 def store(path: str, model: nn.Module, components: Iterable[str]) -> None:
@@ -82,7 +94,7 @@ def _assign(model: nn.Module, trees: Mapping[str, Mapping],
     after every key and shape of every component has been checked."""
     staged = []
     for component, tree in trees.items():
-        want = getattr(model, component).state_dict(keep_vars=True)
+        want = _state(getattr(model, component))
         got = from_flax(tree, dtype=None)
         missing = sorted(set(want) - set(got))
         unexpected = sorted(set(got) - set(want))
@@ -125,13 +137,23 @@ def load(path: str, model: nn.Module, components: Iterable[str],
     return True
 
 
+def _no_array(model: nn.Module, component: str) -> None:
+    if isinstance(getattr(model, component), nn.Parameter):
+        raise ValueError(f"{component} is one array: the TF-bundle layout "
+                         "has keras keys for maps only (the JAX package's "
+                         "store_tf / load_tf fail on it too)")
+
+
 def load_tf(path: str, model: nn.Module, components: Iterable[str]) -> None:
     """Load reference-format (TF tensor-bundle) per-component checkpoints;
-    raises ValueError on a missing key or a shape mismatch."""
-    components = _present(model, components)
-    _assign(model, {c: tfc.import_component(
-        component_path(path, c, ""), to_flax(getattr(model, c)))
-        for c in components}, path)
+    raises ValueError on a missing key or a shape mismatch, and on a
+    one-array component."""
+    trees = {}
+    for c in _present(model, components):
+        _no_array(model, c)
+        trees[c] = tfc.import_component(component_path(path, c, ""),
+                                        to_flax(getattr(model, c)))
+    _assign(model, trees, path)
 
 
 def store_meta(path: str, meta: Dict) -> None:
@@ -154,7 +176,8 @@ def load_meta(path: str) -> Optional[Dict]:
 
 def store_tf(path: str, model: nn.Module, components: Iterable[str]) -> None:
     """Write the listed components the model has in the reference's TF
-    tensor-bundle layout."""
+    tensor-bundle layout; raises ValueError at a one-array component."""
     for component in _present(model, components):
+        _no_array(model, component)
         tfc.export_component(component_path(path, component, ""),
                              to_flax(getattr(model, component)))

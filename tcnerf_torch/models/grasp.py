@@ -17,6 +17,13 @@ for three 480x640 views); `energy_prepared` takes it. `energy` is the two
 in a row, the JAX function. The model reaches no custom kernel: the grasp
 readout needs every activation of the chain (`complete_output`), which the
 fused chain kernel does not emit, in the JAX package as here.
+
+`hash_encoding` adds the hash-grid stream: a top-level parameter
+`hash_tables` [hash_levels, 2^hash_size_log2, hash_features] over
+`workspace_bounds`, whose encoding of the probes' world positions
+(`ops/hashgrid.py`, plain PyTorch, as JAX's jnp) goes to the readout as its
+`extra` stream, cast to the activations' dtype. It is part of
+`energy_prepared`, so the pose ascent and the delta-NGF step see it.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ..nn.grasp_readout import GraspReadout
 from ..nn.layers import resize_bilinear
 from ..nn.mlp import MVResNetMLPEmbedding
 from ..nn.vit import VisualFeatures
+from ..ops.hashgrid import HashGridConfig, hash_encode
 from ..ops.interpolate import (bilinear_gather, bilinear_gather_corners,
                                make_corner_image)
 from ..tasks.transform import Affine
@@ -94,12 +102,13 @@ class GraspEBM(nn.Module):
                  vit_dim: int = 768, vit_heads: int = 12,
                  vit_hooks: Sequence[int] = (3, 6, 9, 12),
                  corner_gather: bool = True, hash_encoding: bool = False,
+                 hash_levels: int = 16, hash_size_log2: int = 14,
+                 hash_features: int = 2, hash_base_res: int = 16,
+                 hash_finest_res: int = 512,
+                 workspace_bounds=((0.35, 0.85), (-0.25, 0.25), (0.0, 0.2)),
                  remat_fusion: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if hash_encoding:
-            raise NotImplementedError(
-                "GraspEBM(hash_encoding=True) waits for the hash grid's port")
         if fusion is not None and fusion not in FUSIONS:
             raise ValueError(f"unknown fusion {fusion!r}")
         self.n_views = n_views
@@ -120,11 +129,24 @@ class GraspEBM(nn.Module):
             n_features=n_features, original_image_size=original_image_size,
             vit_size=vit_size, patch_size=vit_patch, embed_dim=vit_dim,
             num_heads=vit_heads, hooks=vit_hooks, dtype=dtype)
+        self.hash_cfg = None
+        if hash_encoding:
+            self.hash_cfg = HashGridConfig(
+                n_levels=hash_levels, table_size_log2=hash_size_log2,
+                features_per_level=hash_features,
+                base_resolution=hash_base_res,
+                finest_resolution=hash_finest_res,
+                bounds=tuple(tuple(float(v) for v in b)
+                             for b in workspace_bounds))
+            self.hash_tables = nn.Parameter(torch.empty(
+                hash_levels, self.hash_cfg.table_size, hash_features))
         n_fused = n_blocks - n_blocks // 2 + 1
         self.grasp_readout = GraspReadout(
             hidden_size, n_fused, self.n_probes, use_bias=readout_use_bias,
             activation=readout_activation,
-            kernel_initializer=readout_kernel_init, dtype=dtype)
+            kernel_initializer=readout_kernel_init,
+            extra_features=self.hash_cfg.out_dim if hash_encoding else 0,
+            dtype=dtype)
         if fusion is not None:
             self.clip_visual = CLIPVisualEncoder(
                 layers=tuple(clip_layers), width=clip_width,
@@ -244,7 +266,14 @@ class GraspEBM(nn.Module):
             cam_points.reshape(b * v, n, p, 3), dirs.reshape(b * v, n, p, 3),
             feats.reshape(b * v, n, p, feats.shape[-1]),
             features_projected=prepared.corner is not None)
-        return self.grasp_readout(activations[self.n_blocks // 2 + 1:])
+        extra = None
+        if self.hash_cfg is not None:
+            # the probes' world positions: view-independent, as the fused
+            # activations (leading axis B) are
+            extra = hash_encode(self.hash_tables, translations,
+                                self.hash_cfg).to(activations[-1].dtype)
+        return self.grasp_readout(activations[self.n_blocks // 2 + 1:],
+                                  extra)
 
     def energy(self, poses, src_images, src_intrinsics, src_extrinsics_inv,
                batched_features) -> torch.Tensor:

@@ -95,6 +95,14 @@ def render_all_rays_swg(model, src_images, src_intrinsics, src_extrinsics_inv,
     return _assemble(rgbs, depths, n, height, width) + (0,)
 
 
+def swg_default(model, n_views: int, device: torch.device) -> bool:
+    """render_view's default path: the fused swg path for the 1-view,
+    hidden-128, direction-encoded pixel-field model on the card."""
+    return (model.field == "pixel" and n_views == 1
+            and model.hidden_size == 128 and model.embed_direction_vector
+            and device.type == "cuda")
+
+
 def render_view(model, src_colors, src_camera_configs, tgt_camera_config,
                 generator: Optional[torch.Generator] = None,
                 chunk: Optional[int] = None, clip_outputs=None,
@@ -105,8 +113,11 @@ def render_view(model, src_colors, src_camera_configs, tgt_camera_config,
     src_colors: list of [H, W, >=3] uint8; camera configs are
     {'pose': 4x4, 'intrinsics': 9-flat}. Returns (rgb uint8 [H, W, 3],
     min-max-normalised depth uint8 [H, W, 1]). `model` must live on
-    `device` (default cuda). use_swg: the fused swg path; default on for
-    the 1-view, hidden-128, direction-encoded model on the card. chunk:
+    `device` (default cuda). use_swg: the fused swg path; default
+    `swg_default`. A hash-grid model (`field="hashgrid"`) takes the plain
+    path and raises ValueError on use_swg=True: the swg kernels compute
+    the pixel field (the JAX default would send a hidden-128 hash-grid
+    model on a TPU to the swg kernel; ROADMAP Queue C). chunk:
     rays per chunk, default 8192 on the swg path and 512 otherwise.
     clip_outputs / clip_textuals go to `combine_features` (a CLIP-fused
     model computes the first from the sources and gates on ones when they
@@ -129,9 +140,11 @@ def render_view(model, src_colors, src_camera_configs, tgt_camera_config,
                                device=dev)
     tgt_intr3 = torch.as_tensor(np.reshape(
         tgt_camera_config["intrinsics"], (3, 3)).astype(np.float32), device=dev)
+    if use_swg and model.field == "hashgrid":
+        raise ValueError("render_view: the swg path computes the pixel "
+                         "field; a hash-grid model renders on the plain path")
     if use_swg is None:
-        use_swg = (v == 1 and model.hidden_size == 128
-                   and model.embed_direction_vector and dev.type == "cuda")
+        use_swg = swg_default(model, v, dev)
     with torch.inference_mode():
         combined, _ = model.combine_features(src_images[0], clip_outputs,
                                              clip_textuals)

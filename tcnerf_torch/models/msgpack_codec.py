@@ -1,7 +1,9 @@
 """Reader and writer for the part of msgpack that flax's checkpoints use.
 
 `flax.serialization.to_bytes` writes a params tree as one msgpack map whose
-keys are strings and whose values are maps or arrays. An array is an ext
+keys are strings and whose values are maps or arrays; the tree of a
+component that is one array (a grasp model's `hash_tables`) is that array
+alone, the top-level object. An array is an ext
 object of type 1 (type 3: a numpy scalar) whose payload is itself a packed
 3-array `[shape (array of uints), dtype name (str), data (bin)]`. A leaf
 larger than `MAX_CHUNK_SIZE` bytes is written as a map
@@ -174,13 +176,18 @@ def _unchunk(node: Dict, path: str):
                          f"{e}") from e
 
 
-def loads(buf) -> Dict:
-    """The tree of one flax checkpoint blob (bytes, bytearray or memoryview;
-    the leaves are views into it, writable when it is)."""
+def loads(buf):
+    """The tree of one flax checkpoint blob (bytes, bytearray or memoryview):
+    a map, or the array of a one-array component (the leaves are views
+    into the blob, writable when it is)."""
     r = _Reader(buf)
-    tree = r.map(r._byte())
+    tree = r.value("")
+    if not isinstance(tree, (dict, np.ndarray, torch.Tensor)):
+        raise ValueError(f"msgpack: a checkpoint is a map or an array, not "
+                         f"{type(tree).__name__}")
     if r.pos != len(r.mv):
-        raise ValueError(f"msgpack: {len(r.mv) - r.pos} bytes after the map")
+        raise ValueError(f"msgpack: {len(r.mv) - r.pos} bytes after the "
+                         "tree")
     return tree
 
 
@@ -307,17 +314,22 @@ def _pack(parts: List, node) -> None:
                          "checkpoint subset")
 
 
-def dumps(tree: Mapping) -> bytes:
+def dumps(tree) -> bytes:
     """The bytes `flax.serialization.to_bytes(tree)` writes for a nested
-    dict of arrays (key order kept), leaves above MAX_CHUNK_SIZE chunked."""
-    if not isinstance(tree, Mapping):
-        raise ValueError("msgpack: a checkpoint is one top-level map")
+    dict of arrays (key order kept) or one array, leaves above
+    MAX_CHUNK_SIZE chunked."""
+    if isinstance(tree, (np.ndarray, torch.Tensor)):
+        if _nbytes(tree) > MAX_CHUNK_SIZE:
+            tree = _chunked(tree)
+    elif not isinstance(tree, Mapping):
+        raise ValueError("msgpack: a checkpoint is one top-level map or "
+                         "array")
     parts: List = []
     _pack(parts, tree)
     return b"".join(parts)
 
 
-def write(path: str, tree: Mapping) -> int:
+def write(path: str, tree) -> int:
     """`dumps` into `path`; the number of bytes written."""
     blob = dumps(tree)
     with open(path, "wb") as f:

@@ -6,7 +6,14 @@ preprocessed sources, fused by CombineCLIPVisualV0..V4; v3/v4 gate on a
 text embedding, a ones placeholder unless the caller passes one), and
 `corner_gather` True (pre-projected corner-row gather) or False (4-tap
 gather). The constructor keeps the flax module's argument names so configs
-map one to one; the hash-grid field raises NotImplementedError.
+map one to one.
+
+`field="hashgrid"` is the per-scene fast field (nn/hashgrid_field.py): the
+model holds only the coarse and fine `HashGridField` (the `hashgrid_*`
+knobs) and their `RenderReadout`s, so its state dict is the flax tree's;
+`combine_features` runs no tower and returns an empty [n, 1, 1, 0] feature
+map with a zero aux, and `render_rays` conditions the colour on the
+world-frame ray directions, with no corner image and no projection.
 
 Sampling draws: `render_rays` takes the coarse jitter and the PDF uniforms
 as optional explicit tensors (`u_coarse` [B, R, S], `u_fine` [B, R, S]);
@@ -36,6 +43,7 @@ from ..clip.model import CLIPVisualEncoder
 from ..clip.preprocess import preprocess
 from ..nn.blocks import RenderReadout
 from ..nn.fusion import FUSIONS
+from ..nn.hashgrid_field import HashGridField
 from ..nn.layers import resize_bilinear
 from ..nn.mlp import MVResNetMLPEmbedding
 from ..nn.vit import VisualFeatures
@@ -70,11 +78,10 @@ class MVNeRFRenderer(nn.Module):
                  pallas_mlp: bool = False, remat: bool = False,
                  encoder_dtype: Optional[str] = None, dtype=None):
         super().__init__()
-        if field != "pixel":
-            raise NotImplementedError(f"field={field!r} is not ported yet")
+        if field not in ("pixel", "hashgrid"):
+            raise ValueError(f"unknown field {field!r}")
         if fusion != "without" and fusion not in FUSIONS:
             raise ValueError(f"unknown fusion {fusion!r}")
-        # the hashgrid_* knobs configure the field that is not ported yet
         self.n_views = n_views
         self.n_samples = n_samples
         self.n_features = n_features
@@ -94,6 +101,18 @@ class MVNeRFRenderer(nn.Module):
         self.encoder_dtype = _dtype(encoder_dtype)
         self.clip_image_size = clip_image_size
         self.clip_embed_dim = clip_embed_dim
+        if field == "hashgrid":
+            fld = dict(n_levels=hashgrid_levels,
+                       table_size_log2=hashgrid_table_log2,
+                       bounds=hashgrid_bounds, hidden_size=hashgrid_hidden,
+                       n_layers=hashgrid_layers, dtype=self.dtype)
+            self.coarse_embedding = HashGridField(**fld)
+            self.coarse_readout = RenderReadout(hashgrid_hidden, 4,
+                                                dtype=self.dtype)
+            self.fine_embedding = HashGridField(**fld)
+            self.fine_readout = RenderReadout(hashgrid_hidden, 4,
+                                              dtype=self.dtype)
+            return
         kw = dict(n_input_features=n_features + 3, n_blocks=n_blocks,
                   hidden_size=hidden_size, n_views=n_views,
                   embed_direction_vector=embed_direction_vector,
@@ -145,7 +164,12 @@ class MVNeRFRenderer(nn.Module):
         fusion of `clip_outputs` (the CLIP tower's 5-tuple; computed from
         the preprocessed sources, without autograd, when None) with the
         visual features, gated by `clip_textuals` [B*V, clip_embed_dim]
-        (ones when None, the NeRF trainers' placeholder)."""
+        (ones when None, the NeRF trainers' placeholder). The hash-grid
+        field: an empty [B*V, 1, 1, 0] map and aux 0, no tower."""
+        if self.field == "hashgrid":
+            n = src_images_flat.shape[0]
+            empty = src_images_flat.new_zeros((n, 1, 1, 0))
+            return empty, src_images_flat.new_zeros(())
         with record_function("tcnerf.encode"):
             vis = self.encode(src_images_flat)
         if self.fusion == "without":
@@ -179,9 +203,11 @@ class MVNeRFRenderer(nn.Module):
         ray_origins/directions [B, R, 3]; src_images [B, V, H, W, 3];
         intrinsics/extrinsics_inv [B, V, 4, 4]; combined_features
         [B, V, H, W, C]. Returns (rgb, depth, fine_rgb, fine_depth)."""
-        normalized = (src_images * 2.0 - 1.0).to(combined_features.dtype)
+        hashgrid = self.field == "hashgrid"
+        normalized = None if hashgrid else (
+            src_images * 2.0 - 1.0).to(combined_features.dtype)
         corner_c = corner_f = None
-        if self.corner_gather:
+        if self.corner_gather and not hashgrid:
             combined = torch.cat([normalized, combined_features], dim=-1)
             flat_img = combined.reshape((-1,) + combined.shape[2:])
             corner_c = make_corner_image(
@@ -192,8 +218,12 @@ class MVNeRFRenderer(nn.Module):
         world_points, z = sampling.sample_along_ray(
             ray_origins, ray_directions, self.near, self.far, self.n_samples,
             u_jitter=u_coarse, generator=generator)
-        cam_dirs = projection.world_to_camera_directions_mv(
-            ray_directions, src_extrinsics_inv)
+        if hashgrid:
+            # the per-scene field reads the world-frame ray direction
+            cam_dirs = ray_directions[:, None]                 # [B, 1, R, 3]
+        else:
+            cam_dirs = projection.world_to_camera_directions_mv(
+                ray_directions, src_extrinsics_inv)
         chroma, density = self._field(
             world_points, cam_dirs, normalized, src_intrinsics,
             src_extrinsics_inv, combined_features, self.coarse_embedding,
@@ -219,6 +249,9 @@ class MVNeRFRenderer(nn.Module):
                src_intrinsics, src_extrinsics_inv, combined_features,
                embedding, readout, corner_img=None):
         b, r, s, _ = world_points.shape
+        if self.field == "hashgrid":
+            dirs = cam_dirs[:, 0, :, None, :].expand(b, r, s, 3)
+            return readout(embedding(world_points, dirs))
         v = normalized_images.shape[1]
         pixel_xy, cam_points = projection.project_points_mv(
             world_points, src_intrinsics, src_extrinsics_inv)

@@ -26,7 +26,7 @@ class GraspReadout(nn.Module):
     def __init__(self, hidden_size: int, n_activations: int, n_probes: int,
                  use_bias: bool = True, activation: str = "relu",
                  kernel_initializer: str = "glorot_uniform",
-                 activation_downscale: int = 64,
+                 activation_downscale: int = 64, extra_features: int = 0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.activation = activation
@@ -35,8 +35,14 @@ class GraspReadout(nn.Module):
         for i in range(self.n_activations):
             self.add_module(f"activation_downscale_{i + 1}",
                             Dense(hidden_size, activation_downscale, **kw))
+        n_streams = self.n_activations
+        if extra_features:
+            self.activation_downscale_extra = Dense(
+                extra_features, activation_downscale, **kw)
+            n_streams += 1
+        self.extra_features = extra_features
         self.combined_activation_downscale = Dense(
-            activation_downscale * self.n_activations, 64, dtype=dtype)
+            activation_downscale * n_streams, 64, dtype=dtype)
         block = dict(activation=activation,
                      kernel_initializer=kernel_initializer, dtype=dtype)
         self.readout_block_0 = ResNetMLPBlock(n_probes * 64, 128, 64,
@@ -48,15 +54,17 @@ class GraspReadout(nn.Module):
 
     def forward(self, activations: Sequence[torch.Tensor],
                 extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """activations: each [B, N, P, H] -> energies [B, N]. The `extra`
-        stream (the hash-grid encoding of the probe positions) waits for
-        the hash grid's port."""
-        if extra is not None:
-            raise NotImplementedError(
-                "the grasp readout's extra (hash-grid) stream is not ported")
+        """activations: each [B, N, P, H], extra [B, N, P, extra_features]
+        (when the readout was built with the stream) -> energies [B, N]."""
+        if (extra is not None) != bool(self.extra_features):
+            raise ValueError(f"the readout was built with extra_features="
+                             f"{self.extra_features}; extra is "
+                             f"{'given' if extra is not None else 'None'}")
         act = activation_fn(self.activation)
         ds = [act(getattr(self, f"activation_downscale_{i + 1}")(a))
               for i, a in enumerate(activations[:self.n_activations])]
+        if extra is not None:
+            ds.append(act(self.activation_downscale_extra(extra)))
         combined = act(self.combined_activation_downscale(
             torch.cat(ds, dim=-1)))
         combined = combined.reshape(combined.shape[:-2] + (-1,))

@@ -17,7 +17,11 @@ its submodules as the flax modules are named, so a flax path
   Embed `embedding` [vocab, width]   -> nn.Embedding `weight`, as is
   cls_token, pos_embedding, positional_embedding, text_projection
   ([width, out]), LayerNorm / BatchStatNorm scale and bias, FrozenBatchNorm
-  scale / bias / mean / var: as is
+  scale / bias / mean / var, hash_tables [levels, 2^T, F]: as is
+
+A component that is one array (a grasp model's top-level `hash_tables`)
+is its flax tree by itself: `to_flax(parameter)` is the array and
+`from_flax(array)` the state dict `{"": tensor}`.
 """
 
 from __future__ import annotations
@@ -75,7 +79,11 @@ def _convert(path, name: str, value, dtype=np.float32) -> tuple:
 def from_flax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
     """flax params tree (nested dicts of numpy arrays) -> port state_dict
     (in `dtype`: float32, or float64 to carry f64 trees and gradients;
-    None keeps each leaf's dtype, as a checkpoint load does)."""
+    None keeps each leaf's dtype, as a checkpoint load does). A bare
+    array, the tree of a component that is one parameter, gives
+    `{"": tensor}`."""
+    if not isinstance(tree, Mapping):
+        return {"": _convert([], "", tree, dtype)[1]}
     out = {}
 
     def walk(node, path):
@@ -101,14 +109,24 @@ def _heads(module: torch.nn.Module) -> Optional[int]:
     return n if isinstance(n, int) and not isinstance(n, bool) else None
 
 
+def _leaf(t: torch.Tensor):
+    """A CPU copy of `t` as a flax leaf: numpy, or a contiguous
+    `torch.bfloat16` tensor, which numpy cannot hold."""
+    a = t.detach().cpu().clone(memory_format=torch.contiguous_format)
+    return a if a.dtype == torch.bfloat16 else a.numpy()
+
+
 def to_flax(module: torch.nn.Module) -> Dict:
     """The inverse of `from_flax`: `module`'s state_dict -> the flax params
-    tree, nested dicts of numpy arrays in the tensors' dtypes (bfloat16 leaves stay CPU
-    `torch.bfloat16` tensors, which numpy cannot hold). The module gives
+    tree, nested dicts of numpy arrays in the tensors' dtypes (bfloat16
+    leaves stay CPU `torch.bfloat16` tensors); a bare parameter -> its
+    array. The module gives
     what a tensor's shape does not: the heads count of a DenseGeneral
     q/k/v ([heads*hd, D] -> [D, heads, hd]; bias [heads, hd]) and output
     projection ([D, heads*hd] -> [heads, hd, D]), and which `weight` is an
     `nn.Embedding`'s (-> `embedding`)."""
+    if isinstance(module, torch.Tensor):
+        return _leaf(module)
     heads = {name: n for name, m in module.named_modules()
              if (n := _heads(m)) is not None}
     embeds = {name for name, m in module.named_modules()
@@ -139,11 +157,10 @@ def to_flax(module: torch.nn.Module) -> Dict:
             leaf = "kernel"
         elif leaf == "bias" and n and sub in _QKV:
             a = a.reshape(n, -1)
-        a = a.clone(memory_format=torch.contiguous_format)
         node = tree
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = a if a.dtype == torch.bfloat16 else a.numpy()
+        node[leaf] = _leaf(a)
     return tree
 
 
@@ -174,8 +191,9 @@ def init_params(model: torch.nn.Module, generator: torch.Generator) -> None:
     variances one, pos_embedding normal(0.02), cls_token zero, and the CLIP
     towers' own initialisers: token embedding normal(0.02), the text
     positional embedding normal(0.01), AttentionPool2d's normal / sqrt(c),
-    text_projection normal / sqrt(width). In place, on the model's device
-    (the generator must be on the same device)."""
+    text_projection normal / sqrt(width), and hash tables uniform in
+    +-1e-4 (ops/hashgrid.py `init_hash_params`). In place, on the model's
+    device (the generator must be on the same device)."""
     def normal(p, std):
         p.copy_(std * torch.randn(p.shape, generator=generator,
                                   device=p.device))
@@ -202,6 +220,9 @@ def init_params(model: torch.nn.Module, generator: torch.Generator) -> None:
                 normal(p, p.shape[-1] ** -0.5 if "attnpool" in name else 0.01)
             elif leaf == "text_projection":
                 normal(p, p.shape[0] ** -0.5)
+            elif leaf == "hash_tables":
+                u = torch.rand(p.shape, generator=generator, device=p.device)
+                p.copy_((2 * u - 1) * 1e-4)
             elif leaf in ("scale", "var"):
                 p.fill_(1.0)
             else:                             # bias, mean, cls_token

@@ -1,10 +1,12 @@
 """The entry points' configurations: the composed configs of tcnerf/configs
 that the port runs (`CONFIGS`: the stage-1 `nerf_1_view_wo`, `nerf_1_view`,
-`nerf_3_view`, `nerf_1_view_v4_elu` and the grasp `goal_1_view`,
-`dngf_1_view`, `trajectory_1_view-1`, `trajectory_1_view-2`,
-`language_1_view`) as Python dicts, dotted `key=value` overrides and
-`${a.b}` interpolation, as tcnerf/train/config.py composes them from YAML
-(this package reads no YAML: the card's machine has no PyYAML).
+`nerf_3_view`, `nerf_1_view_v4_elu`, the hash-grid fast field's
+`nerf_convergence_hashgrid` and `nerf_convergence_hashgrid_cpu`, and the
+grasp `goal_1_view`, `dngf_1_view`, `dngf_hashgrid`,
+`trajectory_1_view-1`, `trajectory_1_view-2`, `language_1_view`) as
+Python dicts, dotted `key=value` overrides and `${a.b}` interpolation,
+as tcnerf/train/config.py composes them from YAML (this package reads no
+YAML: the card's machine has no PyYAML).
 
 Override values are Python literals (`8`, `[48,64]`, `'x'`), `true`,
 `false` or `null`; anything else is a string: `data_dir=/tmp/run`.
@@ -91,6 +93,32 @@ def _models_path(tail: str) -> str:
     return "${data_dir}/storage/models/" + tail
 
 
+# nerf_model/hashgrid.yaml: the per-scene fast field
+_HASHGRID_MODEL = _merge(_NERF_MODEL, {
+    "n_views": 1, "n_rays_train": 4096, "near": 0.55, "far": 1.8,
+    "field": "hashgrid", "hashgrid_levels": 16, "hashgrid_table_log2": 14,
+    "hashgrid_hidden": 64, "hashgrid_layers": 3,
+    "hashgrid_bounds": [[-0.7, 1.7], [-1.2, 1.2], [-0.1, 0.7]],
+    "corner_gather": False, "remat": False})
+
+
+def _hashgrid(tail: str, model: Dict, training: Dict) -> Dict:
+    """nerf_convergence_hashgrid{,_cpu}.yaml: one synthetic scene fit by
+    the hash-grid field, validated on a held-out view of it."""
+    return _merge(_DEFAULT_NERF, {
+        "dataset": {"path": "${data_dir}/storage/data/nerf_hashgrid_"
+                            + tail + "arc",
+                    "n_perspectives": 16, "n_synthetic_samples": 1,
+                    "azimuth_span_deg": 100},
+        "valid_from_train": True, "valid_sample_idx": 0,
+        "nerf_model": _merge(_HASHGRID_MODEL, model),
+        "nerf_training": _merge(_NERF_TRAINING, {
+            "batch_size": 8, "fusion": "without",
+            "model_path": _models_path("nerf/wo/1_view")}, training, {
+            "batch_size": 1, "learning_rate": 1.0e-2,
+            "feature_learning_rate": 1.0e-2, "warmup_steps": 8})})
+
+
 # the composed configs (tcnerf/configs/<name>.yaml)
 CONFIGS: Dict[str, Dict[str, Any]] = {
     "nerf_1_view_wo": _nerf(1, {"batch_size": 8, "fusion": "without",
@@ -130,6 +158,14 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
             "backbone_path": _models_path("nerf/simple/1_view"),
             "loss": "cross_entropy", "readout_bias": True}),
         "validation": _VALIDATION_2_IMAGES}),
+    "nerf_convergence_hashgrid": _hashgrid("", {}, {
+        "model_path": _models_path("nerf/hashgrid"), "n_epochs": 2048,
+        "eval_after_epochs": 128, "scale_down_after": 1500}),
+    "nerf_convergence_hashgrid_cpu": _hashgrid("cpu_", {
+        "original_image_size": [240, 320], "n_samples": 32,
+        "n_rays_train": 1024, "hashgrid_finest_res": 256}, {
+        "model_path": _models_path("nerf/hashgrid_cpu"), "n_epochs": 1024,
+        "eval_after_epochs": 64, "scale_down_after": 768}),
     **{f"trajectory_1_view-{k}": _merge(_DEFAULT, {
         "dataset": {"path": "${data_dir}/storage/data/trajectory/simple",
                     "n_perspectives": 5},
@@ -157,6 +193,15 @@ CONFIGS: Dict[str, Dict[str, Any]] = {
             "loss": "kl_divergence", "fusion": "v4", "readout_bias": True}),
         "validation": _VALIDATION_3_IMAGES}),
 }
+
+# dngf_hashgrid.yaml: dngf_1_view with the hash-grid grasp stream
+# (grasp_model/dngf_hashgrid.yaml), whose tables train with the readout
+CONFIGS["dngf_hashgrid"] = _merge(CONFIGS["dngf_1_view"], {
+    "grasp_model": {"encoding": "hashgrid", "hash_levels": 16,
+                    "hash_size_log2": 14, "hash_features": 2,
+                    "hash_base_res": 16, "hash_finest_res": 512},
+    "grasp_training": {"train_hash_tables": True},
+    "n_5d_poses": 7})
 
 _INTERP = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
 _WORDS = {"true": True, "false": False, "null": None}

@@ -43,15 +43,15 @@ def build_grasp_model(cfg, fusion: Optional[str] = None,
     the delta-NGF / language flavour: elu, he_normal, the bias from
     `grasp_training.readout_bias`). `corner_gather` follows
     `grasp_training.train_fusion` unless set. A hash-grid `grasp_model`
-    raises (not ported). The model lives on `device` (the card unless the
-    caller passes "cpu"; `device.resolve_device`, which also pins fp32) with
-    weights seeded from `cfg.seed` (`params.init_params`), as
-    `train_nerf.build_model` seeds the renderer."""
+    (`encoding: hashgrid`) adds the hash stream with its `hash_*` knobs
+    over `generator_grasp.workspace_bounds`. The model lives on `device`
+    (the card unless the caller passes "cpu"; `device.resolve_device`,
+    which also pins fp32) with weights seeded from `cfg.seed`
+    (`params.init_params`), as `train_nerf.build_model` seeds the
+    renderer."""
     nm = cfg.nerf_model
     gm = cfg.grasp_model
     gt = cfg.grasp_training
-    if gm.get("encoding", "fourier") == "hashgrid":
-        raise NotImplementedError("the hash-grid grasp field is not ported")
     train_fusion = gt.get("train_fusion", False)
     kwargs = dict(
         n_views=nm.n_views, n_features=nm.n_features,
@@ -73,6 +73,15 @@ def build_grasp_model(cfg, fusion: Optional[str] = None,
         remat_fusion=train_fusion,
         corner_gather=gt.get("corner_gather", not train_fusion),
     )
+    if gm.get("encoding", "fourier") == "hashgrid":
+        kwargs.update(
+            hash_encoding=True, hash_levels=gm.get("hash_levels", 16),
+            hash_size_log2=gm.get("hash_size_log2", 14),
+            hash_features=gm.get("hash_features", 2),
+            hash_base_res=gm.get("hash_base_res", 16),
+            hash_finest_res=gm.get("hash_finest_res", 512),
+            workspace_bounds=tuple(
+                tuple(b) for b in cfg.generator_grasp.workspace_bounds))
     if gt.get("readout_flavor", "dngf") == "goal":
         kwargs.update(readout_activation="elu", readout_use_bias=True,
                       readout_kernel_init="glorot_uniform")

@@ -8,9 +8,11 @@ plus the second-order gradient supervision along expert trajectories
 synchronized t + r ascent. `run_delta_training` also drives
 `train_trajectory` and `train_language`. It runs on the card; `device=cpu`
 runs it on the CPU. Checkpoints as `train_goal`'s, with
-`combine_clip_visual` beside `GRASP_COMPONENTS` for a fused model. The
-hash-grid grasp field (`grasp_model.encoding: hashgrid`, `dngf_hashgrid`)
-is not ported and raises.
+`combine_clip_visual` beside `GRASP_COMPONENTS` for a fused model.
+`--config-name=dngf_hashgrid` trains the hash-grid grasp field
+(`grasp_model.encoding: hashgrid`): with `grasp_training.train_hash_tables`
+its `hash_tables` train with the readout, and are stored, loaded and
+resumed as a component of their own.
 """
 
 from __future__ import annotations
@@ -73,9 +75,9 @@ def run_delta_training(cfg, generator_cls=DeltaNGFDataGenerator, sync=True,
                     and cfg.grasp_training.get("train_fusion", False))
     if train_fusion:
         trainable += ("combine_clip_visual",)
-    if cfg.grasp_training.get("train_hash_tables", False):
-        raise NotImplementedError("train_hash_tables: the hash-grid grasp "
-                                  "field is not ported")
+    if (cfg.grasp_model.get("encoding", "fourier") == "hashgrid"
+            and cfg.grasp_training.get("train_hash_tables", False)):
+        trainable += ("hash_tables",)
     state = init_grasp_state(model, cfg, trainable)
     extras = ("combine_clip_visual",) if fusion is not None else ()
     load_backbone(model, cfg, fusion=fusion is not None)

@@ -19,7 +19,10 @@ runs on the card; `device=cpu` runs on the CPU, e.g. at a tiny size:
 
 The configuration is `nerf_1_view` (fusion v0, batch 1), as the JAX entry
 point's; `--config-name=` picks another of `train/config.py`'s stage-1
-configs (`nerf_3_view`, `nerf_1_view_v4_elu`, `nerf_1_view_wo`), and
+configs (`nerf_3_view`, `nerf_1_view_v4_elu`, `nerf_1_view_wo`, and the
+hash-grid fast field's `nerf_convergence_hashgrid` and its CPU-sized
+`nerf_convergence_hashgrid_cpu`: one scene, validated on a view of it the
+generator never draws, `valid_from_train`), and
 `train_without` is this entry pinned to `nerf_1_view_wo` and fusion
 "without". `build_model` takes the JAX trainer's knobs and defaults: `remat`
 and the 4-tap gather (`corner_gather` off), the plain chain (`pallas_mlp`
@@ -38,7 +41,9 @@ Checkpoints are the JAX package's files (`models/checkpoint.py`): after
 each round the trainer writes `{"epoch": e}` to
 `<model_path>/training_progress.json`, stores `<model_path>/model_final`
 (`RENDERER_WITHOUT_COMPONENTS` for fusion "without", else
-`RENDERER_COMPONENTS`) and its flavour sidecar `model_final_meta.json`.
+`RENDERER_COMPONENTS`; the components the model lacks, every tower of a
+hash-grid model, get no file) and its flavour sidecar
+`model_final_meta.json`.
 At start `_main` loads `model_final` where it is; otherwise it takes the
 ViT of `torch_weights_path` (a timm ViT-B state_dict) where that file is,
 else keeps the seeded weights. A run into a directory with a progress file
@@ -273,12 +278,19 @@ def _main(cfg, device: Optional[torch.device] = None,
                    n_samples=max(cfg.get("valid_sample_idx", 3) + 1, 4),
                    rng=1, azimuth_span_deg=span)
     train_data = load_dataset_nerf(n_persp, cfg.dataset.path + "/train")
-    valid_data = load_validation(
-        cfg, load_dataset_nerf(n_persp, cfg.dataset.path + "/valid"))
+    # a per-scene field (`valid_from_train`, the hash-grid configs)
+    # validates on a held-out view of its training scene, which the
+    # generator never draws; the pixel field on unseen scenes
+    valid_from_train = cfg.get("valid_from_train", False)
+    valid_data = load_validation(cfg, train_data if valid_from_train else
+                                 load_dataset_nerf(n_persp, cfg.dataset.path
+                                                   + "/valid"))
     seed = cfg.get("seed", 0)
     data_generator = MVNeRFDataGenerator(
         train_data, n_rays_train=nm.n_rays_train,
         batch_size=cfg.nerf_training.batch_size, n_views=nm.n_views,
+        exclude_perspectives=((cfg.valid_perspective_tgt_idx,)
+                              if valid_from_train else ()),
         shuffle=True, rng=seed)
     model = build_model(cfg, dev, fusion)
     nt = cfg.nerf_training

@@ -881,3 +881,64 @@ def test_k1_pack_rebuilt_after_a_load(cuda, tmp_path):
         assert RESMLP.counts["resmlp_rows_diff"] == before + 2
         want = other.fine_embedding(pos, dirs, feats)
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------- hash grid
+
+HASH_BOUNDS = ((-0.7, 1.7), (-1.2, 1.2), (-0.1, 0.7))
+
+
+def _hash_points(rng, n):
+    """Points in the nerf_convergence_hashgrid box and beyond its faces."""
+    lo, hi = np.asarray(HASH_BOUNDS).T
+    return rng.uniform(lo - 0.2 * (hi - lo), hi + 0.2 * (hi - lo), (n, 3))
+
+
+@pytest.mark.gpu
+def test_hash_encode_on_card_matches_cpu(cuda):
+    """hash_encode at the configs' width (16 levels of 2^14 x 2) on 200,000
+    points on the card against the CPU: the same table rows (the scales are
+    the CPU's f32 bits, the hash int64 on both), so the encoding within
+    1e-6 x max and its gradients in the points and the tables within
+    1e-5 x max."""
+    from tcnerf_torch.device import resolve_device
+    from tcnerf_torch.ops.hashgrid import HashGridConfig, hash_encode
+    resolve_device("cuda")
+    rng = np.random.default_rng(21)
+    cfg = HashGridConfig(bounds=HASH_BOUNDS)
+    tables = _tt(rng.uniform(-1, 1, (16, 2 ** 14, 2)))
+    x = _tt(_hash_points(rng, 200_000))
+    w = _tt(rng.normal(size=(200_000, 32)))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        t = tables.to(dev).requires_grad_()
+        p = x.to(dev).requires_grad_()
+        enc = hash_encode(t, p, cfg)
+        grads = torch.autograd.grad((enc * w.to(dev)).sum(), (t, p))
+        outs.append([a.detach().cpu() for a in (enc,) + grads])
+    for (got, want), tol in zip(zip(*outs), (1e-6, 1e-5, 1e-5)):
+        _close(got.numpy(), want.numpy(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_hashgrid_field_on_card_matches_cpu(cuda, dtype):
+    """HashGridField at the configs' width (16 x 2^14 x 2 tables, 3 layers
+    of 64) on 65,536 points, card vs CPU with TF32 off: f32 1e-3, bf16
+    2e-2."""
+    from tcnerf_torch.device import resolve_device
+    from tcnerf_torch.nn.hashgrid_field import HashGridField
+    resolve_device("cuda")
+    rng = np.random.default_rng(22)
+    m = HashGridField(bounds=HASH_BOUNDS, dtype=dtype)
+    init_params(m, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        m.hash_tables.mul_(1e4)        # features of the MLP's scale
+    x = _tt(_hash_points(rng, 65_536)).reshape(64, 1024, 3)
+    d = _tt(rng.normal(size=(64, 1024, 3)))
+    with torch.no_grad():
+        want = m(x, d).float()
+        got = m.to(cuda)(x.to(cuda), d.to(cuda)).float().cpu()
+    _close(got.numpy(), want.numpy(), 1e-3 if dtype == torch.float32
+           else 2e-2)

@@ -246,7 +246,8 @@ def test_affine_matches_jax():
     ("elu", "he_normal", False, 4)])
 def test_grasp_readout_matches_flax(activation, init, bias, n_acts):
     """GraspReadout on random activations [B, N, P, 32] (4, and 2 as the
-    2-block model reads): 1e-3 relative."""
+    2-block model reads), without and with the extra (hash-grid) stream:
+    1e-3 relative."""
     rng = np.random.default_rng(5)
     acts = [rng.normal(size=(2, 5, 18, 32)).astype(np.float32)
             for _ in range(n_acts)]
@@ -264,8 +265,26 @@ def test_grasp_readout_matches_flax(activation, init, bias, n_acts):
         got = m([_t(a) for a in acts])
     assert tuple(got.shape) == (2, 5)
     _close(got, want)
-    with pytest.raises(NotImplementedError):
+    # a readout built without the extra stream refuses one
+    with pytest.raises(ValueError):
         m([_t(a) for a in acts], extra=_t(acts[0]))
+    # the extra stream (the hash-grid encoding, 16 levels x 2 features):
+    # its own downscale, then 5 x 64 inputs to the combined downscale
+    extra = rng.normal(size=(2, 5, 18, 32)).astype(np.float32)
+    shapes = jax.eval_shape(fm.init, jax.random.PRNGKey(0),
+                            [jnp.asarray(a) for a in acts],
+                            jnp.asarray(extra))["params"]
+    assert "activation_downscale_extra" in shapes
+    params = _fill(shapes, np.random.default_rng(7))
+    want = _highest(fm.apply)({"params": params},
+                              [jnp.asarray(a) for a in acts],
+                              jnp.asarray(extra))
+    m = GraspReadout(32, n_acts, 18, use_bias=bias, activation=activation,
+                     kernel_initializer=init, extra_features=32)
+    m.load_state_dict(from_flax(params), strict=True)
+    with torch.no_grad():
+        got = m([_t(a) for a in acts], extra=_t(extra))
+    _close(got, want)
 
 
 def test_init_params_follows_the_readout_initializers():

@@ -65,6 +65,13 @@ def test_grasp_training_modules_are_covered():
         assert name in MODULES, name
 
 
+def test_hashgrid_modules_are_covered():
+    """The hash-grid modules are among the files checked above."""
+    for name in ("tcnerf_torch.ops.hashgrid",
+                 "tcnerf_torch.nn.hashgrid_field"):
+        assert name in MODULES, name
+
+
 def test_checkpoint_modules_are_covered():
     """The checkpoint modules are among the files checked above."""
     for name in ("tcnerf_torch.models.msgpack_codec",

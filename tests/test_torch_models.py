@@ -217,10 +217,16 @@ def test_render_view_device_rules(scene):
 
 
 def test_unported_variants_raise():
-    """The hash-grid field is not ported yet; every fusion is (v0-v4 are
-    held against flax in tests/test_torch_fusion.py), and an unknown one
-    is an error."""
-    with pytest.raises(NotImplementedError):
-        MVNeRFRenderer(**{**CFG, "field": "hashgrid"})
+    """Every field and fusion is ported (the hash-grid field is held
+    against flax in tests/test_torch_hashgrid.py, v0-v4 in
+    tests/test_torch_fusion.py): a hash-grid renderer builds its two
+    fields and readouts and nothing else; an unknown fusion or field is
+    an error."""
+    m = MVNeRFRenderer(**{**CFG, "field": "hashgrid"})
+    assert {k.split(".", 1)[0] for k in m.state_dict()} == {
+        "coarse_embedding", "coarse_readout", "fine_embedding",
+        "fine_readout"}
     with pytest.raises(ValueError):
         MVNeRFRenderer(**{**CFG, "fusion": "v5"})
+    with pytest.raises(ValueError):
+        MVNeRFRenderer(**{**CFG, "field": "voxels"})
