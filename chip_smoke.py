@@ -45,8 +45,14 @@ bit, a step card vs CPU), its held-out view served on the plain path at
 chunks 512 and 8192 (a chunk card vs CPU), `dngf_hashgrid` trained 2
 steps through `train_delta_ngf` with its tables, and served through
 `GraspPipeline.from_checkpoints` of that run's files; no chain kernel
-launches there. All checkpoints go under one temporary directory
-outside the repository, removed at the end. The last line is
+launches there. Last the task layer (`phase_collect`): a grasp dataset
+collected through `tcnerf_torch.data.collect.collect_grasp_dataset` (the
+plugin factory's grasp task, the virtual scene's cameras, the suction
+oracle) at 480x640 with its file invariants held, `goal_1_view` and
+`dngf_1_view` trained 2 steps each on it, and a validation with the
+plugin oracle held equal to `OracleAgent`'s; no chain kernel launches
+there either. All checkpoints and collected data go under one temporary
+directory outside the repository, removed at the end. The last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
 Imports torch and the port only.
 """
@@ -1782,6 +1788,95 @@ def check_grasp_train_on_cpu(dev, card, data_dir,
         torch.cuda.empty_cache()
 
 
+def run_grasp_trainer(dev, card, name, module, fn, fusion, cfg, cut,
+                      tag="grasp train"):
+    """One grasp trainer's run through its entry function on `cfg` (cut to
+    `cut`) with its checks: each step's metrics and host time, the median
+    step after the first, the peak memory, each validation's wall and
+    logged errors, every frozen parameter bit-identical to the seeded one
+    and the trainable ones moved, and the host time of one batch's
+    synthesis. Returns the trainer's `GraspRun`, the launch counts of its
+    run and that batch."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from tcnerf_torch.train.grasp_common import build_grasp_model
+
+    run = getattr(importlib.import_module(f"tcnerf_torch.train.{module}"), fn)
+    gt, oc = cfg.grasp_training, cfg.validation.grasp_opt_config
+    rep = cfg.grasp_model.get("rotation_representation", "quaternion")
+    print(f"{tag} {name} ({module}): batch {gt.batch_size}, loss "
+          f"{gt.loss}, {rep}"
+          f", fusion {fusion}, full width, f32, seeded weights; "
+          f"validation {len(cfg.validation.valid_sample_indices)} samples"
+          f" x {oc.optimizer_config.n_initial_guesses} guesses x "
+          f"{oc.optimization_config.n_optimization_steps} steps, "
+          f"{oc.optimizer_config.n_images} images; cut: {cut}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    run_, wall = timed(lambda: run(cfg, device=dev))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps, valid = run_.history["steps"], run_.history["valid"]
+    print(f"{tag} {name} run: {len(steps)} steps + {len(valid)} "
+          f"validations in {wall:.1f} s (dataset synthesis included); "
+          f"peak memory allocated {peak / 2 ** 30:.2f} GiB [{card}]")
+    for k, s in enumerate(steps):
+        metrics = ", ".join(f"{m} {v:.6f}" for m, v in s.items()
+                            if m not in ("data_s", "step_s"))
+        print(f"{tag} {name} step {k + 1}: {metrics}; "
+              f"{s['step_s'] * 1e3:.1f} ms (waiting for the prefetched "
+              f"batch {s['data_s'] * 1e3:.1f} ms) [{card}]")
+        if not all(np.isfinite(v) for v in s.values()):
+            raise AssertionError(f"{name}: step {k + 1} not finite")
+    if len(steps) != 2:
+        raise AssertionError(f"{name}: {len(steps)} steps, not 2")
+    steady = float(np.median([s["step_s"] for s in steps[1:]]))
+    print(f"{tag} {name} step after the first (median): "
+          f"{steady * 1e3:.1f} ms [{card}]")
+    for epoch, logged, seconds in valid:
+        errors = ("warm-up, one sample" if logged is None else
+                  f"mean_r_error_t {logged['mean_r_error_t']:.3f} mm, "
+                  f"mean_r_error_r {logged['mean_r_error_r']:.3f} deg, "
+                  f"best_r_error_mean_t "
+                  f"{logged['best_r_error_mean_t']:.3f} mm, "
+                  f"best_r_error_mean_r "
+                  f"{logged['best_r_error_mean_r']:.3f} deg")
+        print(f"{tag} {name} validation after epoch {epoch}: "
+              f"{seconds * 1e3:.1f} ms wall; {errors} [{card}]")
+        if logged is not None and not np.isfinite(
+                logged["mean_r_error_t"]):
+            raise AssertionError(f"{name}: validation errors not finite")
+    state = run_.state
+    seeded = build_grasp_model(cfg, fusion=fusion, device=dev)
+    trained = set(state.names)
+    frozen_same = moved = 0
+    for (n, p), q in zip(state.model.named_parameters(),
+                         seeded.parameters()):
+        same = torch.equal(p.detach(), q.detach())
+        if n in trained:
+            moved += not same
+        elif not same or p.grad is not None:
+            raise AssertionError(f"{name}: frozen {n} changed")
+        else:
+            frozen_same += 1
+    print(f"check {tag} {name} frozen parameters: {frozen_same} "
+          f"tensors bit-identical to the seeded ones after {len(steps)} "
+          f"steps, without gradients; {moved} of {len(trained)} "
+          f"trainable tensors moved {'OK' if moved else 'FAIL'}")
+    if not moved:
+        raise AssertionError(f"{name}: the readout did not train")
+    del seeded
+    t0 = time.perf_counter()
+    batch = run_.data_generator[0]
+    print(f"{tag} {name}: one batch synthesized on the host "
+          f"without the prefetch thread in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
+    return run_, counts, batch
+
+
 def phase_grasp_train(dev, card, launches, root):
     """The four grasp trainers through their entry functions
     (`tcnerf_torch.train.train_goal`, `train_delta_ngf`, `train_trajectory`,
@@ -1791,27 +1886,18 @@ def phase_grasp_train(dev, card, launches, root):
     batch 8, seeded weights, on synthetic datasets (one per kind, shared by
     the trainers that read it), cut to GRASP_TRAIN_CUT (2 steps, a
     validation after each, and the warm-up) and for language_1_view to 5
-    perspectives. Per trainer: each step's metrics and host time, the
-    median step after the first, the peak memory, each validation's wall
-    and logged errors, every frozen parameter bit-identical to the seeded
-    one and the trainable ones moved, and no chain-kernel launch (K1, K1',
-    K2, K3 count 0), the host time of one batch's synthesis. A profiled
+    perspectives. Per trainer the checks of `run_grasp_trainer` and no
+    chain-kernel launch (K1, K1', K2, K3 count 0). A profiled
     step of goal_1_view and of language_1_view; then one step of each kind
     on the card against the CPU
     (`check_grasp_train_on_cpu`). The trainers' checkpoints go under
     `root`, with a backbone path where none is."""
-    import importlib
-
-    import numpy as np
     import torch
     from tcnerf_torch.train import config
-    from tcnerf_torch.train.grasp_common import build_grasp_model
 
     data_dir = REPO / "build" / "chip_smoke_grasp"
     totals = {k: 0 for k in CHAIN_COUNTS}
     for name, module, fn, fusion, kind in GRASP_TRAIN:
-        run = getattr(importlib.import_module(
-            f"tcnerf_torch.train.{module}"), fn)
         model_path = root / "grasp_train" / name
         cut = GRASP_TRAIN_CUT + GRASP_TRAIN_EXTRA.get(name, [])
         cfg = config.load_config(
@@ -1819,84 +1905,16 @@ def phase_grasp_train(dev, card, launches, root):
              f"grasp_training.model_path={model_path}",
              f"grasp_training.backbone_path={root / 'no_backbone'}", *cut],
             name)
-        gt, oc = cfg.grasp_training, cfg.validation.grasp_opt_config
-        rep = cfg.grasp_model.get("rotation_representation", "quaternion")
-        print(f"grasp train {name} ({module}): batch {gt.batch_size}, loss "
-              f"{gt.loss}, {rep}"
-              f", fusion {fusion}, full width, f32, seeded weights; "
-              f"validation {len(cfg.validation.valid_sample_indices)} samples"
-              f" x {oc.optimizer_config.n_initial_guesses} guesses x "
-              f"{oc.optimization_config.n_optimization_steps} steps, "
-              f"{oc.optimizer_config.n_images} images; cut: {cut}")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_counts()
-        run_, wall = timed(lambda: run(cfg, device=dev))
-        counts = read_counts()
-        peak = torch.cuda.max_memory_allocated(dev)
-        steps, valid = run_.history["steps"], run_.history["valid"]
-        print(f"grasp train {name} run: {len(steps)} steps + {len(valid)} "
-              f"validations in {wall:.1f} s (dataset synthesis included); "
-              f"peak memory allocated {peak / 2 ** 30:.2f} GiB [{card}]")
-        for k, s in enumerate(steps):
-            metrics = ", ".join(f"{m} {v:.6f}" for m, v in s.items()
-                                if m not in ("data_s", "step_s"))
-            print(f"grasp train {name} step {k + 1}: {metrics}; "
-                  f"{s['step_s'] * 1e3:.1f} ms (waiting for the prefetched "
-                  f"batch {s['data_s'] * 1e3:.1f} ms) [{card}]")
-            if not all(np.isfinite(v) for v in s.values()):
-                raise AssertionError(f"{name}: step {k + 1} not finite")
-        if len(steps) != 2:
-            raise AssertionError(f"{name}: {len(steps)} steps, not 2")
-        steady = float(np.median([s["step_s"] for s in steps[1:]]))
-        print(f"grasp train {name} step after the first (median): "
-              f"{steady * 1e3:.1f} ms [{card}]")
-        for epoch, logged, seconds in valid:
-            errors = ("warm-up, one sample" if logged is None else
-                      f"mean_r_error_t {logged['mean_r_error_t']:.3f} mm, "
-                      f"mean_r_error_r {logged['mean_r_error_r']:.3f} deg, "
-                      f"best_r_error_mean_t "
-                      f"{logged['best_r_error_mean_t']:.3f} mm, "
-                      f"best_r_error_mean_r "
-                      f"{logged['best_r_error_mean_r']:.3f} deg")
-            print(f"grasp train {name} validation after epoch {epoch}: "
-                  f"{seconds * 1e3:.1f} ms wall; {errors} [{card}]")
-            if logged is not None and not np.isfinite(
-                    logged["mean_r_error_t"]):
-                raise AssertionError(f"{name}: validation errors not finite")
+        run_, counts, (inputs, labels) = run_grasp_trainer(
+            dev, card, name, module, fn, fusion, cfg, cut)
         for k, key in CHAIN_COUNTS.items():
             totals[k] += counts.get(key, 0)
-        state = run_.state
-        seeded = build_grasp_model(cfg, fusion=fusion, device=dev)
-        trained = set(state.names)
-        frozen_same = moved = 0
-        for (n, p), q in zip(state.model.named_parameters(),
-                             seeded.parameters()):
-            same = torch.equal(p.detach(), q.detach())
-            if n in trained:
-                moved += not same
-            elif not same or p.grad is not None:
-                raise AssertionError(f"{name}: frozen {n} changed")
-            else:
-                frozen_same += 1
-        print(f"check grasp train {name} frozen parameters: {frozen_same} "
-              f"tensors bit-identical to the seeded ones after {len(steps)} "
-              f"steps, without gradients; {moved} of {len(trained)} "
-              f"trainable tensors moved {'OK' if moved else 'FAIL'}")
-        if not moved:
-            raise AssertionError(f"{name}: the readout did not train")
-        del seeded
-        t0 = time.perf_counter()
-        inputs, labels = run_.data_generator[0]
-        print(f"grasp train {name}: one batch synthesized on the host "
-              f"without the prefetch thread in "
-              f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
         if name in ("goal_1_view", "language_1_view"):
             batch = (_moved(inputs, dev), _moved(labels, dev))
             print(f"grasp train {name} profiled step:")
             device_time_by_kernel(lambda: run_.step(*batch), card, top=8)
             del batch
-        del run_, state
+        del run_
         torch.cuda.empty_cache()
     for k, n in totals.items():
         launches[f"{k} grasp_train"] = n
@@ -2609,6 +2627,178 @@ def phase_hashgrid(dev, card, launches, root):
         raise AssertionError("a chain kernel launched on the hash-grid path")
 
 
+# the grasp trainers that read a collected dataset (goal_1_view and
+# dngf_1_view), one train batch of samples
+COLLECT_TRAIN = GRASP_TRAIN[:2]
+COLLECT_SAMPLES = 8
+
+
+def check_collected(root, split, n, n_perspectives):
+    """The file-level invariants of each collected sample under
+    `root/split`: it loads through `load_dataset_baseline`,
+    `load_dataset(record_order=True)` and `load_dataset_language`; its
+    images are `n_perspectives` of H x W; `grasp_pose` is a rigid 4x4 the
+    same in both loaders, on top of its target sphere, ending the
+    trajectory whose length `order` records; exactly one object of `info`
+    is the target and the language string names its colour."""
+    import numpy as np
+    from tcnerf_torch.data.loaders import (load_dataset,
+                                           load_dataset_baseline,
+                                           load_dataset_language)
+    from tcnerf_torch.data.synthetic import color_name
+
+    base = load_dataset_baseline(str(root), n_perspectives, split)
+    grad = load_dataset(str(root), n_perspectives, record_grasp_pose=True,
+                        record_order=True, dataset_type=split)
+    lang = load_dataset_language(n_perspectives, str(root / split))
+    if not len(base) == len(grad) == len(lang) == n:
+        raise AssertionError(f"collect {split}: {len(base)} / {len(grad)} "
+                             f"/ {len(lang)} samples, not {n}")
+    for i in range(n):
+        colors = base.datasets["color"].read_sample(i)
+        if colors.shape[:3] != (n_perspectives, H, W):
+            raise AssertionError(f"collect {split} {i}: images {colors.shape}")
+        g = np.asarray(base.datasets["grasp_pose"].read_sample(i))
+        rot = g[:3, :3]
+        rigid = (g.shape == (4, 4) and np.allclose(rot.T @ rot, np.eye(3),
+                                                   atol=1e-12)
+                 and abs(np.linalg.det(rot) - 1) < 1e-12
+                 and np.array_equal(g[3], [0, 0, 0, 1]))
+        info = base.datasets["info"].read_sample(i)
+        targets = [k for k, v in info.items() if v["is_target"]]
+        traj = grad.datasets["trajectory"].read_sample(i)
+        text = lang.datasets["language"].read_sample(i)
+        ok = (rigid and len(targets) == 1
+              and np.array_equal(g, grad.datasets["grasp_pose"].read_sample(i))
+              and int(grad.datasets["order"].read_sample(i)) == len(traj)
+              and np.array_equal(traj[-1], g))
+        if ok:
+            t = info[targets[0]]
+            top = np.asarray(t["position"]) + [0, 0, t["radius"]]
+            ok = (np.abs(g[:3, 3] - top).max() < 1e-9 and text ==
+                  f"grasp the {color_name(t['color'])} ball")
+        if not ok:
+            raise AssertionError(f"collect {split} sample {i}: {text!r}, "
+                                 f"targets {targets}, rigid {rigid}")
+    print(f"check collect {split}: {n} samples load through the three "
+          f"loaders; grasp poses rigid on top of their one target; the "
+          f"language names the target's colour OK")
+
+
+def validate_with_plugin_oracle(card, cfg, model):
+    """`session.validate` of the trained goal model on the collected
+    validation samples, once with `build_oracle(cfg)` (the suction oracle,
+    scored through the `OracleAgent` fallback) and once with
+    `OracleAgent()`: the same poses, energies and errors. Returns the
+    launch counts of both."""
+    import numpy as np
+    from tcnerf_torch.data.loaders import load_dataset_baseline
+    from tcnerf_torch.tasks.agents import OracleAgent
+    from tcnerf_torch.train import session
+    from tcnerf_torch.train.grasp_common import (build_oracle,
+                                                 build_pose_optimizer,
+                                                 collect_valid_data)
+
+    oracle = build_oracle(cfg)
+    if hasattr(oracle, "calculate_error"):
+        raise AssertionError(f"{type(oracle).__name__} scores itself")
+    valid = load_dataset_baseline(cfg.dataset.path, cfg.dataset.n_perspectives,
+                                  "valid")
+    opt = build_pose_optimizer(model, cfg)
+    valid_data = collect_valid_data(valid, cfg, model)
+    oc = cfg.validation.grasp_opt_config.optimization_config.to_dict()
+    reset_counts()
+    results = {}
+    for tag, o in (("plugin", oracle), ("agent", OracleAgent())):
+        results[tag], wall = timed(lambda: session.validate(
+            opt, oc, valid_data, oracle=o, rng=cfg.get("seed", 0)))
+        errors = [r["errors_r"][-1] for r in results[tag]]
+        print(f"collect validate with {type(o).__name__}: "
+              f"{len(valid_data)} samples in {wall * 1e3:.1f} ms; best "
+              "errors " + ", ".join(f"{t * 1000:.3f} mm / "
+                                    f"{r / np.pi * 180:.3f} deg"
+                                    for t, r in errors) + f" [{card}]")
+    same = all(
+        a["errors_r"] == b["errors_r"]
+        and a["final_success"] == b["final_success"]
+        and all(np.array_equal(x.matrix, y.matrix)
+                for x, y in zip(a["grasp_poses"], b["grasp_poses"]))
+        for a, b in zip(results["plugin"], results["agent"]))
+    print(f"check collect validate: build_oracle(cfg) is "
+          f"{type(oracle).__name__}, its poses, energies and errors equal "
+          f"OracleAgent's {'OK' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("the plugin oracle's validation differs from "
+                             "OracleAgent's")
+    return read_counts()
+
+
+def phase_collect(dev, card, launches, root):
+    """The task layer's data collection feeding the grasp trainers: a
+    goal_1_view-shaped dataset collected through
+    `tcnerf_torch.data.collect.collect_grasp_dataset` (the grasp task from
+    the plugin factory, the virtual scene's ray-traced cameras, the
+    suction oracle; H x W, 5 perspectives, 3 objects, the trajectory's
+    order recorded) into `root/collect`: COLLECT_SAMPLES train samples (one
+    batch of 8) and as many validation samples as
+    `validation.valid_sample_indices` reach, with their host seconds and
+    file-level invariants (`check_collected`). Then `goal_1_view` and
+    `dngf_1_view` trained on it through `train_goal` / `train_delta_ngf`
+    (`run_grasp_trainer`: full width, batch 8, seeded weights,
+    GRASP_TRAIN_CUT; the dataset path holds the collection, so nothing is
+    synthesized), the trained goal model validated with the plugin oracle
+    against `OracleAgent` (`validate_with_plugin_oracle`), and no chain
+    kernel launched in the phase (K1, K1', K2, K3 count 0)."""
+    import torch
+    from tcnerf_torch.data.collect import collect_grasp_dataset
+    from tcnerf_torch.train import config
+
+    data = root / "collect"
+    totals = {k: 0 for k in CHAIN_COUNTS}
+    reset_counts()
+    goal = config.load_config([], "goal_1_view")
+    n_persp = goal.dataset.n_perspectives
+    n_valid = max(goal.validation.valid_sample_indices) + 1
+    for split, n, seed in (("train", COLLECT_SAMPLES, 0),
+                           ("valid", n_valid, 1)):
+        _, wall = timed(lambda: collect_grasp_dataset(
+            str(data / split), n, n_perspectives=n_persp, n_objects=3,
+            image_size=(H, W), rng=seed, record_order=True))
+        print(f"collect {split}: {n} samples x {n_persp} perspectives at "
+              f"{H}x{W}, 3 objects, in {wall:.2f} s on the host, "
+              f"{wall / n:.3f} s a sample [{card}]")
+        check_collected(data, split, n, n_persp)
+    counts = read_counts()
+    for k, key in CHAIN_COUNTS.items():
+        totals[k] += counts.get(key, 0)
+    for name, module, fn, fusion, _ in COLLECT_TRAIN:
+        cfg = config.load_config(
+            [f"dataset.path={data}",
+             f"grasp_training.model_path={root / 'collect_train' / name}",
+             f"grasp_training.backbone_path={root / 'no_backbone'}",
+             *GRASP_TRAIN_CUT], name)
+        run_, counts, _ = run_grasp_trainer(dev, card, name, module, fn,
+                                            fusion, cfg, GRASP_TRAIN_CUT,
+                                            tag="collect train")
+        if name == "goal_1_view":
+            more = validate_with_plugin_oracle(card, cfg, run_.state.model)
+            counts = {k: counts.get(k, 0) + more.get(k, 0)
+                      for k in set(counts) | set(more)}
+        for k, key in CHAIN_COUNTS.items():
+            totals[k] += counts.get(key, 0)
+        del run_
+        torch.cuda.empty_cache()
+    for k, n in totals.items():
+        launches[f"{k} collect"] = n
+    print(f"collect launches of the chain kernels on the phase's path: "
+          f"{totals} (the task layer is numpy on the host; the grasp "
+          f"trainers' embedding emits every activation) "
+          f"{'OK' if not any(totals.values()) else 'FAIL'}")
+    if any(totals.values()):
+        raise AssertionError("a chain kernel launched on the collection "
+                             "phase's path")
+
+
 KERNELS = {
     "K1": dict(name="resmlp_rows", source="tcnerf_torch/csrc/resmlp.cu",
                replaces="tcnerf/ops/pallas/resmlp.py:137",
@@ -2684,6 +2874,8 @@ def main(argv) -> int:
                      "phase_checkpoint", card)
         timed_stores(lambda: phase_hashgrid(dev, card, launches, root),
                      "phase_hashgrid", card)
+        timed_stores(lambda: phase_collect(dev, card, launches, root),
+                     "phase_collect", card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rows = []

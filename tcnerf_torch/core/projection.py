@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from .bounds import clip
+
 PIXEL_CLIP = 1e6
 Z_EPS = 1e-8
 
@@ -17,8 +19,8 @@ def project_points_mv(world_points: torch.Tensor, src_intrinsics: torch.Tensor,
     wph = torch.cat([world_points, torch.ones_like(world_points[..., :1])], -1)
     cam = torch.einsum("bvij,brsj->bvrsi", src_extrinsics_inv, wph)
     proj = torch.einsum("bvij,bvrsj->bvrsi", src_intrinsics, cam)
-    pixel_xy = proj[..., :2] / torch.clamp(proj[..., 2:3], min=Z_EPS)
-    pixel_xy = torch.clamp(pixel_xy, -PIXEL_CLIP, PIXEL_CLIP)
+    pixel_xy = proj[..., :2] / clip(proj[..., 2:3], Z_EPS)
+    pixel_xy = clip(pixel_xy, -PIXEL_CLIP, PIXEL_CLIP)
     return pixel_xy, cam
 
 
@@ -41,8 +43,8 @@ def project_probe_points(points: torch.Tensor, src_intrinsics: torch.Tensor,
     ph = torch.cat([points, torch.ones_like(points[..., :1])], -1)
     cam = torch.einsum("bvij,bnpj->bvnpi", src_extrinsics_inv, ph)
     proj = torch.einsum("bvij,bvnpj->bvnpi", src_intrinsics, cam)
-    pixel_xy = proj[..., :2] / torch.clamp(proj[..., 2:3], min=Z_EPS)
-    pixel_xy = torch.clamp(pixel_xy, -PIXEL_CLIP, PIXEL_CLIP)
+    pixel_xy = proj[..., :2] / clip(proj[..., 2:3], Z_EPS)
+    pixel_xy = clip(pixel_xy, -PIXEL_CLIP, PIXEL_CLIP)
     return pixel_xy, cam[..., :3]
 
 

@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from .bounds import clip
+
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
-                           min=eps)
+    return v / clip(torch.linalg.norm(v, dim=-1, keepdim=True), eps)
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from ..core.bounds import clip
 from ..opt.pose_optimizer import AdamState, adam_direction
 from .grasp import GraspEBM, Prepared
 
@@ -41,7 +42,7 @@ def kl_divergence(labels, probs, eps: float = 1e-7, reduction: str = "mean"):
     both clipped to [eps, 1]; the mean over the batch, or with
     `reduction="sum"` the sum."""
     y_true = torch.clamp(labels, eps, 1.0)
-    y_pred = torch.clamp(probs, eps, 1.0)
+    y_pred = clip(probs, eps, 1.0)
     per_sample = torch.sum(y_true * torch.log(y_true / y_pred), dim=-1)
     return per_sample.sum() if reduction == "sum" else per_sample.mean()
 
@@ -49,10 +50,8 @@ def kl_divergence(labels, probs, eps: float = 1e-7, reduction: str = "mean"):
 def cosine_similarity_loss(y_true, y_pred, eps: float = 1e-12):
     """keras CosineSimilarity loss: minus the mean cosine similarity along
     the last axis."""
-    t = y_true / torch.clamp(torch.linalg.norm(y_true, dim=-1, keepdim=True),
-                             min=eps)
-    p = y_pred / torch.clamp(torch.linalg.norm(y_pred, dim=-1, keepdim=True),
-                             min=eps)
+    t = y_true / clip(torch.linalg.norm(y_true, dim=-1, keepdim=True), eps)
+    p = y_pred / clip(torch.linalg.norm(y_pred, dim=-1, keepdim=True), eps)
     return -torch.mean(torch.sum(t * p, dim=-1))
 
 

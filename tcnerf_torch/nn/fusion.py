@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.bounds import clip
 from .layers import Conv, Dense, max_pool, resize_bilinear
 
 
@@ -232,8 +233,8 @@ class CombineCLIPVisualV2(CombineCLIPVisualV1):
 def _categorical_crossentropy(y_true, y_pred, eps: float = 1e-7):
     """keras CategoricalCrossentropy(from_logits=False): normalise the
     prediction, clip it to [eps, 1 - eps]."""
-    p = y_pred / torch.clamp(y_pred.sum(dim=-1, keepdim=True), min=eps)
-    p = torch.clamp(p, eps, 1.0 - eps)
+    p = y_pred / clip(y_pred.sum(dim=-1, keepdim=True), eps)
+    p = clip(p, eps, 1.0 - eps)
     return -(y_true * torch.log(p)).sum(dim=-1).mean()
 
 

@@ -35,6 +35,8 @@ from typing import Tuple
 
 import torch
 
+from ..core.bounds import clip
+
 _PRIMES = (1, 2654435761, 805459861)   # instant-NGP spatial-hash primes
 _MASK = 0xFFFFFFFF
 
@@ -152,7 +154,7 @@ def hash_encode(tables: torch.Tensor, x: torch.Tensor,
     # times the reciprocal of the box's size: XLA compiles the JAX
     # function's division by its constant bounds so (1 ulp apart in u)
     u = (x.to(dtype) - lo) * inv
-    flat = torch.clamp(u, 0.0, 1.0).reshape(-1, 3)
+    flat = clip(u, 0.0, 1.0).reshape(-1, 3)
     step = max(1, _GROUP // max(flat.shape[0], 1))
     encoded = torch.cat([
         _levels(tables[l:l + step], flat, scales[l:l + step], base,

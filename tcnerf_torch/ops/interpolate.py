@@ -10,10 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from ..core.bounds import clip
+
 
 def _stencil(coords_xy: torch.Tensor, h: int, w: int):
-    x = torch.clamp(coords_xy[..., 0], 0.0, w - 1.0)
-    y = torch.clamp(coords_xy[..., 1], 0.0, h - 1.0)
+    x = clip(coords_xy[..., 0], 0.0, w - 1.0)
+    y = clip(coords_xy[..., 1], 0.0, h - 1.0)
     x0 = torch.clamp(torch.floor(x), 0.0, w - 2.0)
     y0 = torch.clamp(torch.floor(y), 0.0, h - 2.0)
     ax = (x - x0)[..., None]

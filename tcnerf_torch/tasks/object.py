@@ -1,0 +1,5 @@
+"""Re-export shim preserving the reference's manipulation_tasks.object import
+layout (tcnerf/tasks/object.py)."""
+
+from .protocols import *  # noqa: F401,F403
+from .dataclasses import Action, Objective  # noqa: F401

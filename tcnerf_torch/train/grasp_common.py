@@ -1,8 +1,8 @@
 """The grasp entry points' shared parts (tcnerf/train/grasp_common.py):
 the model, its train state, the backbone and resume guards, the pose
-optimizer of the validation, and the validation samples with their
-features. Validation scores poses with `tasks.agents.OracleAgent`; the task
-plugins and `build_oracle` are not ported.
+optimizer of the validation, the validation samples with their features,
+and `build_oracle`, the configured task-plugin oracle. The entry points
+validate with `tasks.agents.OracleAgent`, as the JAX package's do.
 
 `load_backbone` loads the stage-1 backbone (and for a fused model its
 decoder) from `<backbone_path>/model_final` and `resume_or_init` resumes
@@ -28,6 +28,7 @@ from ..models import grasp_training as GT
 from ..models.grasp import GraspEBM
 from ..opt.pose_optimizer import PoseOptimizer
 from ..params import init_params
+from ..tasks.agents import setup_oracle
 from .session import get_inputs
 
 log = logging.getLogger("tcnerf_torch.train")
@@ -212,6 +213,15 @@ def make_compute_features(model: GraspEBM):
             return model.compute_features(images, tok).cpu().numpy()
 
     return compute
+
+
+def build_oracle(cfg):
+    """The oracle of `validation.oracle`, after loading the task plugins of
+    `validation.plugins` (tcnerf/train/grasp_common.py `build_oracle`): for
+    the composed grasp configs the suction oracle, which
+    `session.get_step_results` scores through `OracleAgent`."""
+    validation = cfg.get("validation", {})
+    return setup_oracle(validation.get("plugins"), validation.get("oracle"))
 
 
 def collect_valid_data(valid_dataset, cfg, model: GraspEBM, tokenize_fn=None,

@@ -69,7 +69,9 @@ def error_score(mean_error) -> float:
 
 def get_step_results(losses_r, trajectory_r, gt_grasp_pose_h, oracle=None):
     """The five poses of highest final energy, each scored by the oracle
-    against the true grasp (best last)."""
+    against the true grasp (best last); an oracle without
+    `calculate_error` (the task plugins' oracles) scores through
+    `OracleAgent`, as the JAX function does."""
     from scipy.spatial.transform import Rotation
 
     oracle = oracle or OracleAgent()
@@ -79,9 +81,10 @@ def get_step_results(losses_r, trajectory_r, gt_grasp_pose_h, oracle=None):
     best_idx = np.argsort(losses_r)[-5:]
     best_poses = [trajectory_r[int(k)] for k in best_idx]
     final_success = [float(losses_r[int(k)]) for k in best_idx]
-    errors_r = [oracle.calculate_error(
-        gt_pose, [tuple(pose.translation), tuple(pose.quat)])
-        for pose in best_poses]
+    score = (oracle if hasattr(oracle, "calculate_error")
+             else OracleAgent()).calculate_error
+    errors_r = [score(gt_pose, [tuple(pose.translation), tuple(pose.quat)])
+                for pose in best_poses]
     return {"grasp_poses": best_poses, "final_success": final_success,
             "errors_r": errors_r}
 

@@ -6,6 +6,8 @@ same formula in full fp32 (JAX pins Precision.HIGHEST, the port disables
 TF32); only summation order and libm differ.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,11 +21,12 @@ from tcnerf.core import render as jrender
 from tcnerf.core import sampling as jsamp
 from tcnerf.data import generators as jgen
 from tcnerf.data import synthetic as jsyn
+from tcnerf.ops import hashgrid as jhash
 from tcnerf.ops import interpolate as jinterp
 from tcnerf.ops import sortmerge as jsort
 from tcnerf_torch.core import encoding, projection, rays, render, sampling
 from tcnerf_torch.data import generators, synthetic
-from tcnerf_torch.ops import interpolate, sortmerge
+from tcnerf_torch.ops import hashgrid, interpolate, sortmerge
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -182,3 +185,84 @@ def test_camera_helpers():
         for a, b in zip(generators.camera_parameters(got),
                         jgen.camera_parameters(want)):
             np.testing.assert_array_equal(a, b)
+
+
+def _hash_case(x):
+    kw = dict(n_levels=2, table_size_log2=6)
+    jcfg, cfg = jhash.HashGridConfig(**kw), hashgrid.HashGridConfig(**kw)
+    tables = np.random.default_rng(11).uniform(-1, 1, (2, 64, 2)).astype(
+        np.float32)
+    return (lambda p: jhash.hash_encode(jnp.asarray(tables), p, jcfg),
+            lambda p: hashgrid.hash_encode(_t(tables), p, cfg),
+            np.array([x], np.float32), hashgrid)
+
+
+def _gather_case(corners, xy):
+    img = np.random.default_rng(12).normal(size=(1, 4, 5, 2)).astype(
+        np.float32)
+    if corners:
+        jimg = jinterp.make_corner_image(jnp.asarray(img))
+        timg = interpolate.make_corner_image(_t(img))
+        return (lambda c: jinterp.bilinear_gather_corners(jimg, c),
+                lambda c: interpolate.bilinear_gather_corners(timg, c),
+                np.array([[xy]], np.float32), interpolate)
+    return (lambda c: jinterp.bilinear_gather(jnp.asarray(img), c),
+            lambda c: interpolate.bilinear_gather(_t(img), c),
+            np.array([[xy]], np.float32), interpolate)
+
+
+def _project_case(fn, point):
+    """An identity camera: the pixel is (x / z, y / z), so x = 1e6 at z = 1
+    sits on PIXEL_CLIP and z = 1e-8 (f32) on Z_EPS."""
+    eye = np.broadcast_to(np.eye(4, dtype=np.float32), (1, 1, 4, 4))
+    return (lambda p: getattr(jproj, fn)(p, jnp.asarray(eye),
+                                         jnp.asarray(eye))[0],
+            lambda p: getattr(projection, fn)(p, _t(eye), _t(eye))[0],
+            np.array(point, np.float32).reshape(1, 1, 1, 3), projection)
+
+
+BOUND_TIES = {
+    # the box's lower x face; the upper x and z faces; inside
+    "hash_encode-lower-face": lambda: _hash_case((0.35, 0.0, 0.1)),
+    "hash_encode-upper-faces": lambda: _hash_case((0.85, 0.1, 0.2)),
+    "hash_encode-interior": lambda: _hash_case((0.6, 0.05, 0.13)),
+    # x = w - 1, x = 0, y = h - 1 on a [1, 4, 5, 2] image; inside
+    **{f"{name}-{tag}": functools.partial(_gather_case, corners, xy)
+       for name, corners in (("bilinear_gather", False),
+                             ("bilinear_gather_corners", True))
+       for tag, xy in (("x-upper", (4.0, 1.3)), ("x-lower", (0.0, 2.2)),
+                       ("y-upper", (2.5, 3.0)), ("interior", (1.7, 2.2)))},
+    "project_points_mv-pixel-clip": lambda: _project_case(
+        "project_points_mv", (1e6, 0.5, 1.0)),
+    "project_probe_points-z-eps": lambda: _project_case(
+        "project_probe_points", (1e-9, 2e-9, 1e-8)),
+    "project_points_mv-interior": lambda: _project_case(
+        "project_points_mv", (0.3, -0.2, 0.9)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOUND_TIES))
+def test_gradient_at_a_bound_tie_matches_jax(case, monkeypatch):
+    """At a point exactly on a clip bound, JAX's `maximum` / `minimum` pass
+    half of the gradient to each side and `torch.clamp` passed all of it
+    (hash_encode 934.21 against 467.11, bilinear_gather 2.0486 against
+    1.0243): the port's gradient in the point equals the jitted
+    `jax.grad`'s at 1e-6 of its largest entry, inside the bounds too. The
+    forward is the JAX function's at 1e-6 relative and, bit for bit, what
+    it was with `torch.clamp`."""
+    jfn, tfn, x, module = BOUND_TIES[case]()
+    jout = np.asarray(jax.jit(jfn)(x))
+    w = np.random.default_rng(13).normal(size=jout.shape).astype(np.float32)
+    want = np.asarray(jax.jit(jax.grad(lambda p: jnp.sum(jfn(p) * w)))(x))
+    p = _t(x).requires_grad_()
+    out = tfn(p)
+    np.testing.assert_allclose(out.detach().numpy(), jout, rtol=1e-6,
+                               atol=1e-6)
+    (got,) = torch.autograd.grad(torch.sum(out * _t(w)), p)
+    assert float(np.abs(want).max()) > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 * float(np.abs(want).max()))
+    monkeypatch.setattr(module, "clip",
+                        lambda v, lo=None, hi=None: torch.clamp(v, lo, hi))
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  tfn(_t(x)).numpy())

@@ -764,11 +764,16 @@ def test_grasp_train_step_on_card_matches_cpu(cuda, kind):
     relative from its f64 one, on the same relu branches); and of the f32
     gradients fewer than 1% of the entries beyond 1e-3 x max |cpu| and the
     median error below 1e-4 x max |cpu|."""
-    import copy
     from tcnerf_torch.core.prec import pin_fp32
     pin_fp32()
     goal, delta = _grasp_train_batch(np.random.default_rng(4))
-    batch = goal if kind == "goal" else delta
+    _hold_step_against_cpu(cuda, kind, goal if kind == "goal" else delta)
+
+
+def _hold_step_against_cpu(cuda, kind, batch):
+    """The bars of test_grasp_train_step_on_card_matches_cpu for one step
+    of the tiny model on `batch`."""
+    import copy
     base = _tiny_grasp("cpu")
     for dtype in (torch.float64, torch.float32):
         (mg, gg), (mc, gc) = (_grasp_step_grads(copy.deepcopy(base), kind,
@@ -785,6 +790,43 @@ def test_grasp_train_step_on_card_matches_cpu(cuda, kind):
         else:
             assert float((err > 1e-3 * scale).double().mean()) < 0.01
             assert float(err.median()) < 1e-4 * scale
+
+
+@pytest.mark.gpu
+def test_goal_step_on_a_collected_dataset_on_card_matches_cpu(cuda,
+                                                              tmp_path):
+    """One goal step of the tiny model on a batch of a 48x64 dataset
+    collected through the task layer (`collect_grasp_dataset`: 2 samples,
+    5 perspectives, 3 objects; the goal generator's batch of 2 x 8 poses):
+    the card against the CPU with the bars of
+    test_grasp_train_step_on_card_matches_cpu, then the step taken on the
+    card: a finite loss and the readout trained."""
+    from tcnerf_torch.core.prec import pin_fp32
+    from tcnerf_torch.data.collect import collect_grasp_dataset
+    from tcnerf_torch.data.generators import GraspMVNeRFDataGenerator
+    from tcnerf_torch.data.loaders import load_dataset_baseline
+    from tcnerf_torch.models import grasp_training as GT
+    pin_fp32()
+    collect_grasp_dataset(str(tmp_path / "train"), 2, image_size=(48, 64),
+                          rng=0)
+    generator = GraspMVNeRFDataGenerator(
+        load_dataset_baseline(str(tmp_path), 5, "train"),
+        workspace_bounds=[[0.35, 0.85], [-0.25, 0.25], [0.0, 0.2]],
+        n_views=1, n_points_train=8, batch_size=2, rng=0)
+    inputs, labels = generator[0]
+    _hold_step_against_cpu(cuda, "goal", (inputs, labels))
+    state = GT.create_grasp_train_state(_tiny_grasp(cuda))
+    before = [p.detach().clone() for p in state.params]
+    _, metrics = GT.grasp_train_step(
+        state, [torch.as_tensor(np.asarray(x, np.float32), device=cuda)
+                for x in inputs],
+        torch.as_tensor(np.asarray(labels, np.float32), device=cuda),
+        "kl_divergence")
+    assert np.isfinite(float(metrics["loss"])) and state.step == 1
+    # the energy's last bias has a zero gradient (the softmax ignores a
+    # shift), which Adam leaves where it is
+    assert any(not torch.equal(p.detach(), b)
+               for p, b in zip(state.params, before))
 
 
 def test_grasp_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):

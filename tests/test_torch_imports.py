@@ -94,3 +94,58 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+TASK_MODULES = (
+    ["tcnerf_torch.tasks." + m for m in (
+        "dataclasses", "protocols", "factory", "loader", "agents", "object",
+        "oracle", "primitive", "scene", "sensor", "task",
+        "transform_utils.random", "transform_utils.differences",
+        "plugins.objects.base", "plugins.primitives.pick_and_place",
+        "plugins.scenes.virtual", "plugins.oracles.suction_grasp",
+        "plugins.oracles.insertion", "plugins.tasks.grasp_task",
+        "plugins.tasks.simple_task", "plugins.tasks.box_packing_task",
+        "plugins.tasks.kitting_task")]
+    + ["tcnerf_torch.data.collect", "tcnerf_torch.core.bounds"])
+
+
+def test_task_modules_are_covered():
+    """The task layer's modules, data collection and the clip helper are
+    among the files checked above."""
+    for name in TASK_MODULES:
+        assert name in MODULES, name
+
+
+def test_plugins_load_with_jax_blocked():
+    """With JAX, flax and the JAX package blocked, the loader resolves the
+    port config's plugin names (the JAX package's modules), the
+    reference's `manipulation_tasks.plugins.*` names and the short names
+    to the port's plugins, and the factory then builds the suction
+    oracle; nothing of the JAX package was imported."""
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            "for m in ('tcnerf', 'jax', 'flax'):\n"
+            "    sys.modules[m] = None\n"
+            "from tcnerf_torch.tasks import factory, loader\n"
+            "from tcnerf_torch.train.config import load_config\n"
+            "names = load_config([], 'goal_1_view').validation.plugins\n"
+            "assert all(n.startswith('tcnerf.tasks.') for n in names.plugins)\n"
+            "loader.load_plugins(names.plugins)\n"
+            "loader.load_plugins(['manipulation_tasks.plugins.tasks."
+            "simple_task', 'insertion', 'virtual_scene', 'objects'])\n"
+            "o = factory.create_oracle({'oracle_type': "
+            "'suction_grasp-oracle', 'gripper_offset': "
+            "{'rotation': [3.14159265359, 0.0, 1.57079632679]}})\n"
+            "assert type(o).__module__ == "
+            "'tcnerf_torch.tasks.plugins.oracles.suction_grasp'\n"
+            "factory.create_task_factory({'task_factory_type': "
+            "'simple-task-factory', 't_bounds': [[0, 1]] * 3, 'r_bounds': "
+            "[[0, 0]] * 3, 'object_types': [], 'n_objects': 0, "
+            "'manipulation_type': 'x', 'primitive_type': 'x'})\n"
+            "loaded = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('tcnerf', 'jax', 'flax') and sys.modules[m] is not None)\n"
+            "assert not loaded, loaded\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
