@@ -51,7 +51,13 @@ plugin factory's grasp task, the virtual scene's cameras, the suction
 oracle) at 480x640 with its file invariants held, `goal_1_view` and
 `dngf_1_view` trained 2 steps each on it, and a validation with the
 plugin oracle held equal to `OracleAgent`'s; no chain kernel launches
-there either. All checkpoints and collected data go under one temporary
+there either. Then trained quality (`phase_convergence`):
+`nerf_convergence_hashgrid_cpu` fit to epoch 256 through
+`tcnerf_torch/tools/convergence.py`, its validation PSNR printed beside
+the JAX package's record and held at CONVERGENCE_BARS, the full-width
+`nerf_convergence` for one step with its two validation renders (K2), and
+a `TCNERF_TRACE` run whose Chrome trace must hold CUDA kernels; last both
+demos (`phase_demos`). All checkpoints and collected data go under one temporary
 directory outside the repository, removed at the end. The last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
 Imports torch and the port only.
@@ -2799,6 +2805,184 @@ def phase_collect(dev, card, launches, root):
                              "phase's path")
 
 
+# phase_convergence: the JAX package's records (docs/*.jsonl) less 1.5 dB
+# for the other initial weights and arithmetic, at the epochs the cut run
+# validates; fixed before the first run on the card
+CONVERGENCE = "nerf_convergence_hashgrid_cpu"
+CONVERGENCE_CUT = ["nerf_training.n_epochs=256"]
+CONVERGENCE_BARS = {128: 21.02, 256: 22.84}
+FULL_CONVERGENCE_CUT = ["nerf_training.n_epochs=2",
+                        "nerf_training.eval_after_epochs=2",
+                        "dataset.n_synthetic_samples=8"]
+TRACE_CUT = ["nerf_training.n_epochs=2", "nerf_training.eval_after_epochs=2"]
+
+
+def phase_convergence(dev, card, launches, root):
+    """Trained quality and the convergence configs on the card:
+
+    (a) `nerf_convergence_hashgrid_cpu` fit from the port's seeded weights
+        through `tools/convergence.py` `fit` (`train_nerf`), cut to
+        CONVERGENCE_CUT (validations at 0, 64, 128, 192, 256), its PSNR
+        printed beside the JAX package's record and held at
+        CONVERGENCE_BARS; the median step, its wait for the batch and one
+        profiled step (device idle share); no chain kernel launches;
+    (b) `nerf_convergence` at full width for one fit round
+        (FULL_CONVERGENCE_CUT: 8 scenes, two steps of batch 8, the
+        validations before and after them on the swg path): finite losses
+        and PSNRs; the first step's learning rate is 0 (the warm-up), so
+        after the second each trained group (nerf, feature) holds a
+        tensor moved from the seeded weights and no frozen tensor moved;
+        the K2 launches counted as `launches_convergence`;
+    (c) a TCNERF_TRACE run (one fit round of 2 epochs of (a)'s config):
+        one Chrome trace file holding CUDA kernel events."""
+    import numpy as np
+    import torch
+    from tcnerf_torch.data.generators import to_device
+    from tcnerf_torch.data.loaders import load_dataset_nerf
+    from tcnerf_torch.models import training as T
+    from tcnerf_torch.tools import convergence
+    from tcnerf_torch.train import config, train_nerf
+
+    data_dir = f"data_dir={root / 'convergence'}"
+    reset_counts()
+    print(f"convergence (a): {CONVERGENCE} from seeded weights, cut: "
+          f"{CONVERGENCE_CUT}; bars {CONVERGENCE_BARS} dB (the JAX "
+          f"record less 1.5 dB)")
+    cfg, state, history = convergence.fit(CONVERGENCE,
+                                          [data_dir, *CONVERGENCE_CUT])
+    counts = read_counts()
+    chain = {k: counts.get(key, 0) for k, key in CHAIN_COUNTS.items()}
+    nm, nt = cfg.nerf_model, cfg.nerf_training
+    steps = history["steps"]
+    n_steps = nt.n_epochs * cfg.dataset.n_synthetic_samples // nt.batch_size
+    if (len(steps) != n_steps
+            or not all(np.isfinite(st["loss"]) for st in steps)):
+        raise AssertionError(f"convergence (a): not {n_steps} finite steps")
+    rows = convergence.compare(
+        convergence.read_metrics(nt.model_path),
+        convergence.read_metrics(convergence.record_path(CONVERGENCE)),
+        CONVERGENCE_BARS)
+    print(convergence.format_rows(rows))
+    ok = convergence.passes(rows)
+    print(f"check convergence {CONVERGENCE} PSNR at epochs "
+          f"{sorted(CONVERGENCE_BARS)} >= {CONVERGENCE_BARS} dB [{card}] "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"convergence: below {CONVERGENCE_BARS} dB")
+    print(f"check convergence (a) chain-kernel launches: {chain} "
+          f"{'OK' if not any(chain.values()) else 'FAIL'}")
+    if any(chain.values()):
+        raise AssertionError("convergence (a): a chain kernel launched")
+    ds = load_dataset_nerf(cfg.dataset.n_perspectives,
+                           f"{cfg.dataset.path}/train")
+    gen = train_nerf.MVNeRFDataGenerator(
+        ds, n_rays_train=nm.n_rays_train, batch_size=nt.batch_size,
+        n_views=1, rng=5, exclude_perspectives=(cfg.valid_perspective_tgt_idx,))
+    batch = to_device(*gen[0], dev)
+    print("convergence (a) profiled train step:")
+    device_time_by_kernel(
+        lambda: T.nerf_train_step(state, *batch,
+                                  torch.Generator(device=dev).manual_seed(8)),
+        card, top=6)
+    del state, batch
+    torch.cuda.empty_cache()
+
+    full = config.load_config([data_dir, *FULL_CONVERGENCE_CUT],
+                              "nerf_convergence")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (state, history), wall = timed(lambda: train_nerf._main(full, dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = read_counts()
+    k2 = counts.get(CHAIN_COUNTS["K2"], 0)
+    launches["K2 convergence"] = k2
+    steps = history["steps"]
+    print(f"convergence (b): nerf_convergence at full width, cut "
+          f"{FULL_CONVERGENCE_CUT}: {len(steps)} step(s) of batch "
+          f"{full.nerf_training.batch_size} (loss "
+          f"{[round(st['loss'], 6) for st in steps]}, "
+          f"{[round(1e3 * st['step_s'], 1) for st in steps]} ms) and "
+          f"validations {[(e, round(float(v), 3)) for e, v in history['valid']]}"
+          f" dB in {wall:.1f} s (dataset synthesis included), peak "
+          f"{peak / 2 ** 30:.2f} GiB; the JAX record at epoch 0: 14.565 dB "
+          f"(other weights); launches {counts} [{card}]")
+    ok = (len(steps) == 2 and all(np.isfinite(st["loss"]) for st in steps)
+          and len(history["valid"]) == 2
+          and all(np.isfinite(v) for _, v in history["valid"]) and k2 > 0)
+    print(f"check convergence (b): two finite steps, two finite "
+          f"validations, {k2} K2 launches {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("convergence (b): nerf_convergence failed")
+    seeded = train_nerf.build_model(full, dev)
+    moved = {"nerf": [0, 0], "feature": [0, 0], "frozen": [0, 0]}
+    for (n, p), q in zip(state.model.named_parameters(),
+                         seeded.parameters()):
+        group = moved[T.param_group(n)]
+        group[0] += not torch.equal(p.detach(), q.detach())
+        group[1] += 1
+    ok = (moved["nerf"][0] > 0 and moved["feature"][0] > 0
+          and moved["frozen"][0] == 0)
+    print(f"check convergence (b) update: tensors moved from the seeded "
+          f"weights after 2 steps, per group [moved, of]: {moved} "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("convergence (b): the full-width fit did not "
+                             "update both parameter groups")
+    del state, seeded
+    torch.cuda.empty_cache()
+
+    trace_dir = root / "trace"
+    traced = config.load_config(
+        [data_dir, f"nerf_training.model_path={root / 'trace_run'}",
+         *TRACE_CUT], CONVERGENCE)
+    os.environ["TCNERF_TRACE"] = str(trace_dir)
+    try:
+        (_, history), wall = timed(lambda: train_nerf._main(traced, dev))
+    finally:
+        del os.environ["TCNERF_TRACE"]
+    files = sorted(trace_dir.iterdir())
+    events = []
+    if len(files) == 1:
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    ok = len(files) == 1 and kernels > 0 and len(history["steps"]) == 2
+    print(f"check convergence (c) TCNERF_TRACE: {len(files)} file(s) "
+          f"({', '.join(f'{p.name} {p.stat().st_size} bytes' for p in files)})"
+          f", {len(events)} events, {kernels} CUDA kernel events, run "
+          f"{wall:.1f} s {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("convergence (c): no CUDA kernel in the trace")
+
+
+def phase_demos(dev, card):
+    """The two demos on the card through their functions: the CLIP demo at
+    224^2 (full-size random towers; 3 x 3 finite probabilities, rows
+    summing to 1) and the pipeline demo (64 guesses, 4 steps; 5 poses with
+    finite energies, best first)."""
+    import numpy as np
+    from tcnerf_torch.clip import demo
+    from tcnerf_torch.models import pipeline
+
+    probs, wall = timed(lambda: demo.main(["--size", "224"]))
+    ok = (probs.shape == (3, 3) and np.isfinite(probs).all()
+          and np.allclose(probs.sum(axis=1), 1.0, atol=1e-5))
+    print(f"check demo clip (224^2, random RN50 and text towers): rows sum "
+          f"to {probs.sum(axis=1).tolist()}, {wall:.2f} s "
+          f"{'OK' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("demo clip: bad probabilities")
+    result, wall = timed(lambda: pipeline._demo(device=dev))
+    ok = (len(result.poses) == 5 and np.isfinite(result.scores).all()
+          and np.isfinite(result.all_energies).all()
+          and result.scores == sorted(result.scores, reverse=True))
+    print(f"check demo pipeline: {len(result.all_energies)} guesses, top "
+          f"{len(result.poses)} energies {[round(x, 4) for x in result.scores]}"
+          f", {wall:.2f} s {'OK' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("demo pipeline: bad energies")
+
+
 KERNELS = {
     "K1": dict(name="resmlp_rows", source="tcnerf_torch/csrc/resmlp.cu",
                replaces="tcnerf/ops/pallas/resmlp.py:137",
@@ -2876,6 +3060,9 @@ def main(argv) -> int:
                      "phase_hashgrid", card)
         timed_stores(lambda: phase_collect(dev, card, launches, root),
                      "phase_collect", card)
+        timed_stores(lambda: phase_convergence(dev, card, launches, root),
+                     "phase_convergence", card)
+        phase_demos(dev, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rows = []

@@ -120,14 +120,15 @@ class MNPZDataset:
 class ColorDataset(NPZDataset):
     """Posed RGB(A) captures: per sample an [n_perspectives, H, W, 4] uint8
     array. Samples stay in memory after their first read (least recently
-    used first out, up to CACHE_BYTES), read-only since batches share them:
+    used first out, up to $TCNERF_DATASET_CACHE_MB MiB, default 512, read
+    when the dataset is made), read-only since batches share them:
     decompressing them is most of a batch's host time otherwise."""
-
-    CACHE_BYTES = 512 * 2 ** 20
 
     def __init__(self, directory: str, n_perspectives: Optional[int] = None):
         super().__init__(directory)
         self._cache: "OrderedDict[int, np.ndarray]" = OrderedDict()
+        self._cache_budget = int(os.environ.get(
+            "TCNERF_DATASET_CACHE_MB", "512")) * 2 ** 20
         self._cache_bytes = 0
         if n_perspectives is None and len(self) > 0:
             n_perspectives = self.read_sample(0).shape[0]
@@ -140,11 +141,11 @@ class ColorDataset(NPZDataset):
             return cached
         with np.load(_sample_file(self.directory, idx, "npz")) as z:
             colors = z["colors"]
-        if colors.nbytes <= self.CACHE_BYTES:
+        if colors.nbytes <= self._cache_budget:
             colors.flags.writeable = False
             self._cache[idx] = colors
             self._cache_bytes += colors.nbytes
-            while self._cache_bytes > self.CACHE_BYTES:
+            while self._cache_bytes > self._cache_budget:
                 _, old = self._cache.popitem(last=False)
                 self._cache_bytes -= old.nbytes
         return colors

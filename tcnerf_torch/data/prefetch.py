@@ -16,10 +16,12 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
 
 
 def _host(a) -> torch.Tensor:
@@ -91,12 +93,33 @@ def prefetch_to_device(batch_iter: Iterator, device: torch.device,
         thread.join()
 
 
-def prefetched_epochs(data_generator, n_epochs: int, device: torch.device,
-                      size: int = 2) -> Iterator:
-    """`n_epochs` epochs of a DataGenerator's (inputs, labels) batches,
-    synthesized in the background and copied to `device` ahead of use."""
+def prefetched_epochs(data_generator, n_epochs: Optional[int],
+                      device: torch.device, size: int = 2) -> Iterator:
+    """`n_epochs` epochs (endless when it is None) of a DataGenerator's
+    (inputs, labels) batches, synthesized in the background and copied to
+    `device` ahead of use."""
     def host_batches():
-        for _ in range(n_epochs):
+        epoch = 0
+        while n_epochs is None or epoch < n_epochs:
             yield from data_generator.epoch()
+            epoch += 1
 
     return prefetch_to_device(host_batches(), device, size=size)
+
+
+class GeneratorFeeder:
+    """Epochs of a DataGenerator's (inputs, labels) batches on `device`
+    (the card unless the caller names another), `prefetch` batches ahead:
+    `n_epochs` of them, or endless when it is None
+    (tcnerf/data/prefetch.py `GeneratorFeeder`)."""
+
+    def __init__(self, generator, n_epochs: Optional[int] = None,
+                 prefetch: int = 2, device: Optional[torch.device] = None):
+        self.generator = generator
+        self.n_epochs = n_epochs
+        self.prefetch = prefetch
+        self.device = resolve_device(device)
+
+    def __iter__(self):
+        return prefetched_epochs(self.generator, self.n_epochs, self.device,
+                                 self.prefetch)

@@ -19,6 +19,11 @@ package wrote:
     pipe = GraspPipeline.from_checkpoints(model, "<grasp run>",
                                           workspace_bounds,
                                           backbone_dir="<stage-1 run>")
+
+A demo on a synthetic scene (a tiny seeded `GraspEBM`, or its files from
+`model_dir`), on the card unless `--device` names another:
+
+    python -m tcnerf_torch.models.pipeline [model_dir] [--device cpu]
 """
 
 from __future__ import annotations
@@ -142,3 +147,59 @@ class GraspPipeline:
         return GraspResult(poses=opt.get_results(state, order),
                            scores=[float(energies[int(i)]) for i in order],
                            duration_s=duration, all_energies=energies)
+
+
+def _demo(model_dir: Optional[str] = None, device=None) -> GraspResult:
+    """The JAX package's pipeline demo: a 48x64 synthetic scene of two
+    spheres seen from one camera, a tiny `GraspEBM` (32-wide ViT at 32^2,
+    32 features, 2 blocks of 32, 3 5-d poses) with seeded weights, those
+    that `model_dir`'s `model_final` files hold replaced by theirs, 64
+    guesses and 4 ascent steps; prints the top-k energies and poses."""
+    from ..data.generators import camera_parameters
+    from ..data.synthetic import SyntheticScene, generate_views
+    from ..params import init_params
+
+    dev = resolve_device(device)
+    h, w = 48, 64
+    scene = SyntheticScene.random(0, n_spheres=2)
+    colors, configs = generate_views(scene, 2, height=h, width=w,
+                                     radius=1.0, polar=0.6)
+    images = np.asarray(colors[0][..., :3] / 255.0, np.float32)[None, None]
+    ext_inv, k4 = camera_parameters(configs[0])
+    intr = np.asarray(k4, np.float32)[None, None]
+    ext = np.asarray(ext_inv, np.float32)[None, None]
+    model = GraspEBM(n_views=1, n_features=32, original_image_size=(h, w),
+                     n_5d_poses=3, n_blocks=2, hidden_size=32,
+                     vit_size=(32, 32), vit_patch=16, vit_dim=32, vit_heads=2,
+                     vit_hooks=(1, 2, 3, 4)).to(dev)
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    workspace = ((0.3, 0.7), (-0.25, 0.25), (0.0, 0.3))
+    if model_dir:
+        pipe = GraspPipeline.from_checkpoints(model, model_dir, workspace,
+                                              n_initial_guesses=64,
+                                              n_optimization_steps=4)
+    else:
+        pipe = GraspPipeline(model=model, params=None,
+                             workspace_bounds=workspace,
+                             n_initial_guesses=64, n_optimization_steps=4)
+    result = pipe.infer(images, intr, ext, rng=0)
+    print(f"refined {len(result.all_energies)} guesses in "
+          f"{result.duration_s:.2f}s; top-{len(result.poses)}:")
+    for pose, score in zip(result.poses, result.scores):
+        t = np.round(pose.translation, 3)
+        print(f"  energy={score:+.4f} t={t} quat={np.round(pose.quat, 3)}")
+    return result
+
+
+if __name__ == "__main__":
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="grasp pipeline demo on a synthetic scene")
+    parser.add_argument("model_dir", nargs="?", default=None,
+                        help="a grasp run's directory (its model_final "
+                             "files); seeded weights without it")
+    parser.add_argument("--device", default=None,
+                        help="cuda (the default) or cpu")
+    args = parser.parse_args()
+    _demo(args.model_dir, args.device)

@@ -1,9 +1,10 @@
-"""NeRF embedding MLP with mid-network multi-view mean fusion
-(tcnerf/nn/mlp.py).
+"""NeRF embedding MLPs (tcnerf/nn/mlp.py): the single-view
+`ResNetMLPEmbedding` and `MVResNetMLPEmbedding`, with mid-network
+multi-view mean fusion.
 
-The input layout is view-major: the leading axis is (batch * n_views);
-after the `n_blocks // 2` feature blocks the stream is mean-reduced over
-views and the fusion blocks continue on the fused stream.
+The multi-view input layout is view-major: the leading axis is
+(batch * n_views); after the `n_blocks // 2` feature blocks the stream is
+mean-reduced over views and the fusion blocks continue on the fused stream.
 """
 
 from __future__ import annotations
@@ -42,6 +43,55 @@ class SliceableDense(Dense):
         dt = _compute_dtype(self.dtype, x, self.weight)
         return x.to(dt) @ self.weight[:, :self.split].t().to(dt) \
             + self.bias.to(dt)
+
+
+def encode_pos_dir(positions, directions, n_freq: int, freq: float,
+                   embed_direction_vector: bool) -> torch.Tensor:
+    """The Fourier encoding of the positions, then that of the directions
+    (`embed_direction_vector`) or the raw directions."""
+    enc_d = (positional_encoding(directions, n_freq, freq)
+             if embed_direction_vector else directions)
+    return torch.cat([positional_encoding(positions, n_freq, freq), enc_d],
+                     dim=-1)
+
+
+class ResNetMLPEmbedding(nn.Module):
+    """Single-view NeRF MLP: the Fourier encodings of positions (and of
+    directions with `embed_direction_vector`, else the raw directions) and
+    the `n_input_features` per-sample features, through `layer_0` and
+    `n_blocks` residual blocks `block_<i>` (glorot-uniform kernels, as the
+    flax module's). Returns the last activation, or with
+    `complete_output` the list [layer_0, block_0, ..., block_<n-1>]."""
+
+    def __init__(self, n_input_features: int, n_blocks: int = 6,
+                 hidden_size: int = 128, n_freq: int = 10,
+                 pos_encoding_freq: float = math.pi,
+                 embed_direction_vector: bool = False,
+                 complete_output: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.n_freq = n_freq
+        self.pos_encoding_freq = pos_encoding_freq
+        self.embed_direction_vector = embed_direction_vector
+        self.complete_output = complete_output
+        pd = 6 * n_freq + (6 * n_freq if embed_direction_vector else 3)
+        self.layer_0 = Dense(pd + n_input_features, hidden_size, dtype=dtype)
+        self.blocks = []
+        for i in range(n_blocks):
+            blk = ResNetMLPBlock(hidden_size, hidden_size, hidden_size,
+                                 kernel_initializer="glorot_uniform",
+                                 dtype=dtype)
+            self.add_module(f"block_{i}", blk)
+            self.blocks.append(blk)
+
+    def forward(self, positions, directions, features):
+        enc = encode_pos_dir(positions, directions, self.n_freq,
+                             self.pos_encoding_freq,
+                             self.embed_direction_vector)
+        outputs = [self.layer_0(torch.cat([enc, features], dim=-1))]
+        for block in self.blocks:
+            outputs.append(block(outputs[-1]))
+        return outputs if self.complete_output else outputs[-1]
 
 
 class MVResNetMLPEmbedding(nn.Module):
@@ -86,12 +136,9 @@ class MVResNetMLPEmbedding(nn.Module):
                 self.fusion_blocks.append(blk)
 
     def encode_pos_dir(self, positions, directions):
-        enc_p = positional_encoding(positions, self.n_freq,
-                                    self.pos_encoding_freq)
-        enc_d = (positional_encoding(directions, self.n_freq,
-                                     self.pos_encoding_freq)
-                 if self.embed_direction_vector else directions)
-        return torch.cat([enc_p, enc_d], dim=-1)
+        return encode_pos_dir(positions, directions, self.n_freq,
+                              self.pos_encoding_freq,
+                              self.embed_direction_vector)
 
     def project_image(self, images):
         return self.layer_0.project_tail(images)

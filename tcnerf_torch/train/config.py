@@ -1,11 +1,14 @@
-"""The entry points' configurations: the composed configs of tcnerf/configs
-that the port runs (`CONFIGS`: the stage-1 `nerf_1_view_wo`, `nerf_1_view`,
+"""The entry points' configurations: the 19 composed configs of
+tcnerf/configs (`CONFIGS`: the stage-1 `nerf_1_view_wo`, `nerf_1_view`,
 `nerf_3_view`, `nerf_1_view_v4_elu`, the hash-grid fast field's
-`nerf_convergence_hashgrid` and `nerf_convergence_hashgrid_cpu`, and the
-grasp `goal_1_view`, `dngf_1_view`, `dngf_hashgrid`,
-`trajectory_1_view-1`, `trajectory_1_view-2`, `language_1_view`) as
-Python dicts, dotted `key=value` overrides and `${a.b}` interpolation,
-as tcnerf/train/config.py composes them from YAML (this package reads no
+`nerf_convergence_hashgrid` and `nerf_convergence_hashgrid_cpu`, the grasp
+`goal_1_view`, `dngf_1_view`, `dngf_hashgrid`, `trajectory_1_view-1`,
+`trajectory_1_view-2`, `language_1_view`, and the convergence runs
+`nerf_convergence`, `nerf_convergence_cpu`, `goal_convergence`,
+`goal_convergence_cpu`, `language_convergence`,
+`language_convergence_cpu`, `dngf_convergence_cpu`) as Python dicts,
+dotted `key=value` overrides and `${a.b}` interpolation, as
+tcnerf/train/config.py composes them from YAML (this package reads no
 YAML: the card's machine has no PyYAML).
 
 Override values are Python literals (`8`, `[48,64]`, `'x'`), `true`,
@@ -202,6 +205,100 @@ CONFIGS["dngf_hashgrid"] = _merge(CONFIGS["dngf_1_view"], {
                     "hash_base_res": 16, "hash_finest_res": 512},
     "grasp_training": {"train_hash_tables": True},
     "n_5d_poses": 7})
+
+# the convergence runs (tcnerf/configs/*_convergence*.yaml): the synthetic
+# scenes on a one-sided 100-degree arc, sampled over [0.55, 1.8] where the
+# stage-1 model trains; the CPU-sized ones at 96x128 with a small ViT, and
+# the grasp runs on the stage-1 convergence runs' backbones
+_ARC = {"n_perspectives": 5, "n_synthetic_samples": 64,
+        "azimuth_span_deg": 100}
+_CPU_MODEL = {"original_image_size": [96, 128], "n_samples": 32,
+              "n_rays_train": 256, "n_blocks": 4, "hidden_size": 64,
+              "vit_size": [96, 96], "vit_dim": 192, "vit_heads": 4,
+              "vit_hooks": [2, 4, 6, 8]}
+_CPU_VALIDATION = {"valid_sample_indices": [0, 1, 2, 3], "grasp_opt_config": {
+    "optimizer_config": {"n_initial_guesses": 256, "n_images": 2},
+    "optimization_config": {"n_optimization_steps": 16}}}
+_CPU_GRASP = {"backbone_path": _models_path("nerf/convergence_cpu"),
+              "n_epochs": 192, "eval_after_epochs": 8, "batch_size": 2}
+_FULL_VALIDATION = {"valid_sample_indices": [0, 1, 2, 3], "grasp_opt_config": {
+    "optimizer_config": {"n_initial_guesses": 1024},
+    "optimization_config": {"n_optimization_steps": 16}}}
+
+
+def _data_path(tail: str) -> str:
+    return "${data_dir}/storage/data/" + tail
+
+
+CONFIGS["nerf_convergence"] = _merge(CONFIGS["nerf_1_view_wo"], {
+    "dataset": {"path": _data_path("nerf_convergence_arc"),
+                "n_perspectives": 16, "n_synthetic_samples": 128,
+                "azimuth_span_deg": 100},
+    "nerf_model": {"near": 0.55, "far": 1.8},
+    "nerf_training": {"model_path": _models_path("nerf/convergence2"),
+                      "n_epochs": 2048, "eval_after_epochs": 32,
+                      "warmup_steps": 300, "learning_rate": 3.0e-4,
+                      "feature_learning_rate": 3.0e-5}})
+CONFIGS["nerf_convergence_cpu"] = _merge(CONFIGS["nerf_1_view_wo"], {
+    "dataset": {"path": _data_path("nerf_convergence_cpu_arc"),
+                "n_perspectives": 8, "n_synthetic_samples": 8,
+                "azimuth_span_deg": 100},
+    "nerf_model": _merge({"near": 0.55, "far": 1.8}, _CPU_MODEL,
+                         {"remat": False}),
+    "nerf_training": {"model_path": _models_path("nerf/convergence_cpu"),
+                      "n_epochs": 1536, "eval_after_epochs": 64,
+                      "batch_size": 2, "warmup_steps": 50,
+                      "learning_rate": 1.0e-3,
+                      "feature_learning_rate": 1.0e-4},
+    "valid_sample_idx": 0, "valid_perspective_src_indices": [1, 2, 3],
+    "valid_perspective_tgt_idx": 5})
+CONFIGS["goal_convergence"] = _merge(CONFIGS["goal_1_view"], {
+    "dataset": _merge(_ARC, {"path": _data_path("goal_convergence_1obj_arc"),
+                             "n_spheres": 1}),
+    "grasp_training": {"model_path": _models_path("grasp/convergence2"),
+                       "backbone_path": _models_path("nerf/convergence2"),
+                       "n_epochs": 200, "eval_after_epochs": 8},
+    "validation": _FULL_VALIDATION})
+CONFIGS["goal_convergence_cpu"] = _merge(CONFIGS["goal_1_view"], {
+    "dataset": _merge(_ARC, {
+        "path": _data_path("goal_convergence_cpu_1obj_arc"), "n_spheres": 1}),
+    "nerf_model": _CPU_MODEL,
+    "grasp_model": {"n_5d_poses": 5},
+    "generator_grasp": {"n_points_train": 128, "n_r_fraction": 8},
+    "grasp_training": _merge(_CPU_GRASP, {
+        "model_path": _models_path("grasp/convergence_cpu_1obj")}),
+    "validation": _CPU_VALIDATION})
+CONFIGS["language_convergence"] = _merge(CONFIGS["language_1_view"], {
+    "dataset": _merge(_ARC, {"path": _data_path("language_convergence_arc"),
+                             "n_spheres": 4}),
+    "grasp_training": {"model_path": _models_path("grasp/language_convergence"),
+                       "backbone_path": _models_path("nerf/convergence2"),
+                       "train_fusion": True, "n_epochs": 256,
+                       "eval_after_epochs": 8, "batch_size": 4},
+    "generator_grasp": {"pose_augmentation_factor": 8},
+    "validation": _FULL_VALIDATION})
+CONFIGS["language_convergence_cpu"] = _merge(CONFIGS["language_1_view"], {
+    "dataset": _merge(_ARC, {
+        "path": _data_path("language_convergence_cpu_arc"), "n_spheres": 4}),
+    "nerf_model": _merge(_CPU_MODEL, {
+        "clip_layers": [2, 2, 2, 2], "clip_width": 16, "clip_embed_dim": 128,
+        "clip_text_width": 64, "clip_text_layers": 2, "clip_image_size": 64}),
+    "grasp_model": {"n_5d_poses": 5},
+    "generator_grasp": {"pose_augmentation_factor": 8, "n_future_poses": 4},
+    "grasp_training": _merge(_CPU_GRASP, {
+        "model_path": _models_path("grasp/language_convergence_cpu"),
+        "train_fusion": True}),
+    "validation": _CPU_VALIDATION})
+CONFIGS["dngf_convergence_cpu"] = _merge(CONFIGS["dngf_1_view"], {
+    "dataset": _merge(_ARC, {
+        "path": _data_path("dngf_convergence_cpu_1obj_arc"), "n_spheres": 1}),
+    "nerf_model": _merge({"near": 0.55, "far": 1.8}, _CPU_MODEL),
+    "grasp_model": {"n_5d_poses": 5},
+    "generator_grasp": {"n_points_train": 128, "n_r_fraction": 8,
+                        "pose_augmentation_factor": 8, "n_future_poses": 4},
+    "grasp_training": _merge(_CPU_GRASP, {
+        "model_path": _models_path("grasp/dngf_convergence_cpu")}),
+    "validation": _merge(_VALIDATION_3_IMAGES, _CPU_VALIDATION)})
 
 _INTERP = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
 _WORDS = {"true": True, "false": False, "null": None}

@@ -19,8 +19,10 @@ runs on the card; `device=cpu` runs on the CPU, e.g. at a tiny size:
 
 The configuration is `nerf_1_view` (fusion v0, batch 1), as the JAX entry
 point's; `--config-name=` picks another of `train/config.py`'s stage-1
-configs (`nerf_3_view`, `nerf_1_view_v4_elu`, `nerf_1_view_wo`, and the
-hash-grid fast field's `nerf_convergence_hashgrid` and its CPU-sized
+configs (`nerf_3_view`, `nerf_1_view_v4_elu`, `nerf_1_view_wo`, the
+convergence runs `nerf_convergence` (full width, 128 scenes on a 100-degree
+arc) and its CPU-sized `nerf_convergence_cpu`, and the hash-grid fast
+field's `nerf_convergence_hashgrid` and its CPU-sized
 `nerf_convergence_hashgrid_cpu`: one scene, validated on a view of it the
 generator never draws, `valid_from_train`), and
 `train_without` is this entry pinned to `nerf_1_view_wo` and fusion
@@ -35,7 +37,11 @@ round of `eval_after_epochs` epochs ends with a validation render through
 `render_view`, its PSNR and the strip `<model_path>/valid/valid-<epoch>.png`
 (source views, target, render, depth; written with the stdlib, as the
 card's machine has no PIL); a validation runs before the first round too.
-Each validation appends a line to `<model_path>/metrics.jsonl`.
+Each validation appends a line to `<model_path>/metrics.jsonl`
+(`tcnerf_torch/tools/convergence.py` prints it beside the JAX package's
+record of the same config). With `TCNERF_TRACE=<logdir>` the steps of the
+run's first fit round are traced (`utils/profiling.py` `trace`: host and
+card, a Chrome trace file in `<logdir>`).
 
 Checkpoints are the JAX package's files (`models/checkpoint.py`): after
 each round the trainer writes `{"epoch": e}` to
@@ -54,6 +60,7 @@ state: Adam's moments and the warm-up count begin again.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -75,6 +82,7 @@ from ..models import training as T
 from ..models.inference import psnr, render_view
 from ..models.renderer import MVNeRFRenderer
 from ..params import init_params
+from ..utils.profiling import trace
 from .config import load_config, parse_argv
 from .session import init_training_session
 
@@ -213,21 +221,26 @@ def train_model(state: T.TrainState, data_generator: MVNeRFDataGenerator,
 
     if start_epoch == 0:
         validate(0, None)
-    for k in range(start_epoch // nt.eval_after_epochs,
-                   nt.n_epochs // nt.eval_after_epochs):
+    # TCNERF_TRACE=<logdir>: a torch.profiler trace of the first fit
+    # round's steps (utils/profiling.py `trace`), as the JAX trainer's
+    trace_dir = os.environ.get("TCNERF_TRACE")
+    start_round = start_epoch // nt.eval_after_epochs
+    for k in range(start_round, nt.n_epochs // nt.eval_after_epochs):
         batches = iter(prefetched_epochs(data_generator, nt.eval_after_epochs,
                                          device))
-        while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            if batch is None:
-                break
-            t_data = time.perf_counter() - t0
-            state, metrics = T.nerf_train_step(state, *batch, generator)
-            loss = float(metrics["loss"])
-            history["steps"].append(dict(
-                step=state.step, loss=loss, data_s=t_data,
-                step_s=time.perf_counter() - t0))
+        with (trace(trace_dir) if trace_dir and k == start_round
+              else contextlib.nullcontext()):
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                t_data = time.perf_counter() - t0
+                state, metrics = T.nerf_train_step(state, *batch, generator)
+                loss = float(metrics["loss"])
+                history["steps"].append(dict(
+                    step=state.step, loss=loss, data_s=t_data,
+                    step_s=time.perf_counter() - t0))
         epoch = (k + 1) * nt.eval_after_epochs
         log.info("epoch %d: loss %.5f", epoch, history["steps"][-1]["loss"])
         validate(epoch, history["steps"][-1]["loss"])
