@@ -56,8 +56,16 @@ there either. Then trained quality (`phase_convergence`):
 `tcnerf_torch/tools/convergence.py`, its validation PSNR printed beside
 the JAX package's record and held at CONVERGENCE_BARS, the full-width
 `nerf_convergence` for one step with its two validation renders (K2), and
-a `TCNERF_TRACE` run whose Chrome trace must hold CUDA kernels; last both
-demos (`phase_demos`). All checkpoints and collected data go under one temporary
+a `TCNERF_TRACE` run whose Chrome trace must hold CUDA kernels; then both
+demos (`phase_demos`). Last the parallel package at world size 1 on one
+NCCL rank (`phase_parallel`): the dry run's rank checks at tiny widths,
+then at full width the sharded 480x640 render (bf16, K1) against
+`render_all_rays` bit for bit with as many K1 launches (counted as
+`launches_parallel`) and both timed, the sharded pose ascent of
+`goal_1_view` (4096 guesses) bit for bit, the sharded and explicit train
+steps of `nerf_1_view_wo` (K1'), two updates each, against
+`nerf_train_step` (in torch's default mode within stated bars, in its
+deterministic mode bit for bit), and `host_shard_indices`. All checkpoints and collected data go under one temporary
 directory outside the repository, removed at the end. The last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
 Imports torch and the port only.
@@ -2983,6 +2991,311 @@ def phase_demos(dev, card):
         raise AssertionError("demo pipeline: bad energies")
 
 
+PARALLEL_CHUNK = 4096
+
+
+def _same(name, got, want):
+    """Bit-identical tensors, or an AssertionError with the largest gap."""
+    ok = got.shape == want.shape and bool((got == want).all())
+    gap = float((got.double() - want.double()).abs().max())
+    print(f"check parallel {name}: bit for bit {'OK' if ok else 'FAIL'} "
+          f"(max |diff| {gap:.6g})")
+    if not ok:
+        raise AssertionError(f"parallel {name} differs")
+
+
+def parallel_render(mesh, dev, card, launches):
+    """(a) The sharded full-image render at bench_sharded's configuration
+    (480x640, 1 view, bf16, pallas_mlp: K1 in both chain halves, n_features
+    256, 6 blocks, 64+64 samples, random bf16 features, camera_ring(2),
+    4096-ray chunks) against render_all_rays with one generator seed: the
+    same bits and as many K1 launches; then 3 timed runs of each, in
+    turns."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tcnerf_torch.data.synthetic import camera_ring
+    from tcnerf_torch.models import inference
+    from tcnerf_torch.parallel.serve import render_image_sharded
+
+    model = build_model(dev, dtype=torch.bfloat16, pallas_mlp=True)
+    rng = np.random.default_rng(6)
+    cfg, tgt = camera_ring(2, height=H, width=W)[:2]
+    k4 = np.eye(4, dtype=np.float32)
+    k4[:3, :3] = cfg["intrinsics"].reshape(3, 3)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    feats = torch.randn((1, 1, H, W, 256), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+    args = (model, f32(rng.uniform(size=(1, 1, H, W, 3))), f32(k4[None, None]),
+            f32(np.linalg.inv(cfg["pose"])[None, None]), feats,
+            f32(tgt["pose"]), f32(tgt["intrinsics"].reshape(3, 3)), H, W,
+            PARALLEL_CHUNK)
+    paths = {"sharded": functools.partial(render_image_sharded, mesh),
+             "render_all_rays": inference.render_all_rays}
+
+    def run(name):
+        with torch.no_grad():
+            return paths[name](*args, generator=torch.Generator(
+                device=dev).manual_seed(9))
+
+    outs, counts, first = {}, {}, {}
+    for name in paths:
+        reset_counts()
+        outs[name], first[name] = timed(lambda: run(name))
+        counts[name] = read_counts().get("resmlp_rows", 0)
+    launches["K1 parallel"] = counts["sharded"]
+    for i, part in enumerate(("fine_rgb", "fine_depth")):
+        _same(f"render {H}x{W} {part} vs render_all_rays",
+              outs["sharded"][i], outs["render_all_rays"][i])
+    if not counts["sharded"] == counts["render_all_rays"] > 0:
+        raise AssertionError(f"parallel render K1 launches {counts}")
+    times = {name: [] for name in paths}
+    for _ in range(3):
+        for name in paths:
+            times[name].append(timed(lambda: run(name))[1])
+    med = {name: float(np.median(t)) for name, t in times.items()}
+    print(f"parallel render {H}x{W} at world size 1 ({dist.get_backend()}), "
+          f"chunk "
+          f"{PARALLEL_CHUNK}: sharded {med['sharded'] * 1e3:.1f} ms "
+          f"({H * W / med['sharded']:.0f} rays/s), render_all_rays "
+          f"{med['render_all_rays'] * 1e3:.1f} ms "
+          f"({H * W / med['render_all_rays']:.0f} rays/s), difference "
+          f"{(med['sharded'] - med['render_all_rays']) * 1e3:+.1f} ms "
+          f"(medians of {[round(x * 1e3, 1) for x in times['sharded']]} / "
+          f"{[round(x * 1e3, 1) for x in times['render_all_rays']]}; first "
+          f"calls {first['sharded'] * 1e3:.1f} / "
+          f"{first['render_all_rays'] * 1e3:.1f} ms); K1 launches "
+          f"{counts['sharded']} / {counts['render_all_rays']} [{card}]")
+    del model, feats, outs
+
+
+def parallel_ascent(mesh, dev, card):
+    """(b) `goal_1_view` at full width (4096 guesses, 3 images, phase_grasp's
+    scene): the energies of each rank's block of guesses and the explicit
+    ascent gradients, gathered, against the plain PoseOptimizer energies
+    and autograd of the whole, bit for bit."""
+    import torch
+    from tcnerf_torch.models.pipeline import GraspPipeline
+    from tcnerf_torch.opt.pose_optimizer import frozen
+    from tcnerf_torch.parallel.explicit import (gather_guesses,
+                                                make_explicit_ascent_step)
+    from tcnerf_torch.parallel.mesh import pose_shardings
+    from tcnerf_torch.train import config
+    from tcnerf_torch.train.grasp_common import build_grasp_model
+
+    cfg = config.load_config([], "goal_1_view")
+    opt_cfg = cfg.validation.grasp_opt_config.optimizer_config
+    model = build_grasp_model(cfg, device=dev)
+    pipe = GraspPipeline(model=model, params=None,
+                         workspace_bounds=cfg.generator_grasp.workspace_bounds,
+                         n_initial_guesses=opt_cfg.n_initial_guesses,
+                         n_images=opt_cfg.n_images)
+    opt = pipe._ensure_optimizer()
+    scene = grasp_scene(opt_cfg.n_images, seed=2)
+    sc = opt.prepare(scene, pipe.encode(scene[0]))
+    guesses = opt.generate_initial_guesses(0)
+    whole = opt.init_state(guesses)
+    block = opt.init_state([pose_shardings(mesh).local(g).cpu().numpy()
+                            for g in guesses])
+    _same(f"ascent energies of {opt_cfg.n_initial_guesses} guesses",
+          gather_guesses(opt.compute_current_grasp_success(block, sc), mesh,
+                         dim=0),
+          opt.compute_current_grasp_success(whole, sc))
+
+    energy_fn = opt._energies
+    ascent = make_explicit_ascent_step(mesh, energy_fn)
+    with frozen(model):
+        t = whole.translations.detach().requires_grad_(True)
+        r = whole.rotations.detach().requires_grad_(True)
+        with torch.enable_grad():
+            want = torch.autograd.grad(-energy_fn(t, r, sc).sum(), (t, r))
+        (got_t, got_r), secs = timed(
+            lambda: ascent(whole.translations, whole.rotations, sc))
+    for name, got, w in (("dE/dt", got_t, want[0]), ("dE/dr", got_r, want[1])):
+        _same(f"explicit ascent {name}", gather_guesses(got, mesh), w)
+    print(f"parallel ascent: one explicit gradient step of "
+          f"{opt_cfg.n_initial_guesses} guesses x {opt_cfg.n_images} images "
+          f"{secs * 1e3:.1f} ms (first call) [{card}]")
+    del pipe, model, opt, sc
+
+
+PARALLEL_UPDATE_BAR = 2e-2
+
+
+def deterministic_algorithms(on: bool):
+    """Turn torch's deterministic mode on or off (cuBLAS asks for
+    CUBLAS_WORKSPACE_CONFIG while it is on; the memory-efficient attention
+    and the indexing backward then take their deterministic algorithms)."""
+    import torch
+    if on:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(on)
+
+
+def parallel_train(mesh, dev, card, launches, root):
+    """(c) `nerf_1_view_wo` (f32, pallas_mlp: K1' in the chain halves) at
+    batch 8 x 512 rays on phase_train's dataset: the sharded step and the
+    explicit step (with this rank's block of the global draws) against
+    `nerf_train_step` on copies of the model with the same draws, two
+    updates on the same batch with a warm-up of one step (the first at
+    learning rate 0, filling Adam's moments; the second at the full rate),
+    a second `nerf_train_step` run as the control. First in torch's
+    default mode, whose backward adds with atomics (the indexing backward,
+    the memory-efficient attention), so that runs differ: held are the
+    first loss bit for bit, Adam's moments after the first update at 1e-5
+    of their largest entry (the gradients) and the parameters after the
+    second update at a relative L2 distance from nerf_train_step's of at
+    most PARALLEL_UPDATE_BAR of the update's L2 norm (Adam's update is
+    about lr x sign(grad)). Then in torch's deterministic mode, where the
+    loss, the moments and every parameter after the second update must
+    be nerf_train_step's bit for bit."""
+    import copy
+
+    import torch
+    from tcnerf_torch.data.generators import MVNeRFDataGenerator, to_device
+    from tcnerf_torch.data.loaders import load_dataset_nerf
+    from tcnerf_torch.models import training as T
+    from tcnerf_torch.parallel.explicit import make_explicit_train_step
+    from tcnerf_torch.parallel.mesh import (RAY_SPEC, Sharding,
+                                            nerf_train_step_sharded,
+                                            shard_nerf_batch, shard_params)
+    from tcnerf_torch.train import config, train_nerf
+
+    data_dir = REPO / "build" / "chip_smoke_train"
+    cfg = config.load_config([f"data_dir={data_dir}", *TRAIN_CUT,
+                              f"nerf_training.model_path={root / 'par'}"],
+                             "nerf_1_view_wo")
+    base = train_nerf.build_model(cfg, dev)
+    before = torch.cat([p.detach().reshape(-1) for p in base.parameters()])
+    b, r = cfg.nerf_training.batch_size, cfg.nerf_model.n_rays_train
+    ds = load_dataset_nerf(cfg.dataset.n_perspectives,
+                           f"{cfg.dataset.path}/train")
+    batch = to_device(*MVNeRFDataGenerator(
+        ds, n_rays_train=r, batch_size=b, n_views=1, rng=1)[0], dev)
+    draws = T.draw_samples(base, b, r, torch.Generator(
+        device=dev).manual_seed(7), dev)
+    local = shard_nerf_batch(*batch, mesh)
+    local_draws = tuple(Sharding(mesh, RAY_SPEC).local(u) for u in draws)
+    explicit = make_explicit_train_step(mesh)
+    steps = {
+        "nerf_train_step": lambda s: T.nerf_train_step(s, *batch,
+                                                       draws=draws),
+        "control": lambda s: T.nerf_train_step(s, *batch, draws=draws),
+        "sharded": lambda s: nerf_train_step_sharded(s, *local, mesh,
+                                                     draws=draws),
+        "explicit": lambda s: explicit(s, *local, draws=local_draws)}
+
+    def run(name, step):
+        model = copy.deepcopy(base)
+        state = T.create_train_state(
+            model, T.make_nerf_optimizer(model, warmup_steps=1))
+        if name in ("sharded", "explicit"):
+            shard_params(state.model, state.optimizer, mesh)
+        reset_counts()
+        (_, metrics), secs = timed(lambda: step(state))
+        k1d = read_counts().get("resmlp_rows_diff", 0)
+        moments = torch.cat([torch.cat([v["exp_avg"].reshape(-1),
+                                        v["exp_avg_sq"].reshape(-1)])
+                             for v in state.optimizer.adam.state.values()])
+        step(state)
+        return metrics["loss"], state.model, moments, secs, k1d
+
+    for deterministic in (False, True):
+        mode = "deterministic" if deterministic else "default"
+        deterministic_algorithms(deterministic)
+        try:
+            results = {name: run(name, step) for name, step in steps.items()}
+        finally:
+            deterministic_algorithms(False)
+        want_loss, want_model, want_m, _, want_k = results["nerf_train_step"]
+        if not deterministic:
+            launches["K1' parallel"] = results["sharded"][4]
+        want_p = torch.cat([p.detach().reshape(-1)
+                            for p in want_model.parameters()])
+        norm = float((want_p - before).norm())
+
+        def update_gap(model):
+            got = torch.cat([p.detach().reshape(-1)
+                             for p in model.parameters()])
+            return float((got - want_p).norm()) / norm
+
+        control_m = float((results["control"][2] - want_m).abs().max())
+        control_p = update_gap(results["control"][1])
+        for name in ("sharded", "explicit"):
+            loss, model, moments, secs, k1d = results[name]
+            _same(f"{name} train step loss ({mode} mode)", loss, want_loss)
+            got = dict(model.named_parameters())
+            same = sum(torch.equal(p, got[n])
+                       for n, p in want_model.named_parameters())
+            gap_m = float((moments - want_m).abs().max())
+            gap_p = update_gap(model)
+            if deterministic:
+                bar_m, bar_p = 0.0, 0.0
+                ok = same == len(got)
+            else:
+                bar_m = 1e-5 * float(want_m.abs().max())
+                bar_p = PARALLEL_UPDATE_BAR
+                ok = True
+            ok = (ok and k1d == want_k > 0 and gap_m <= bar_m
+                  and gap_p <= bar_p)
+            print(f"check parallel {name} train step ({mode} mode): Adam "
+                  f"moments after the first update max |diff| "
+                  f"{gap_m:.6g}, limit {bar_m:.6g} (control "
+                  f"{control_m:.6g}); params after the second update rel. "
+                  f"L2 distance {gap_p:.6g} of the update (norm "
+                  f"{norm:.6g}), limit {bar_p} (control {control_p:.6g}), "
+                  f"{same} of {len(got)} tensors bit for bit; K1' launches "
+                  f"{k1d} / {want_k}; {secs * 1e3:.1f} ms (first call) "
+                  f"[{card}] {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"parallel {name} train step differs ({mode} mode): "
+                    f"moments {gap_m:.6g}, params {gap_p:.6g}, {same} of "
+                    f"{len(got)} tensors bit for bit")
+        del results, want_model
+    del base
+
+
+def phase_parallel(dev, card, launches, root):
+    """The parallel package at world size 1 on the card (one NCCL rank):
+    `parallel.dryrun.rank_checks` at tiny widths, then (a) the sharded
+    render and (b) the sharded ascent at full width against their
+    one-process versions bit for bit, (c) the sharded and explicit train
+    steps against `nerf_train_step` (see parallel_train), and (d)
+    `host_shard_indices`. The group is destroyed at the end."""
+    import numpy as np
+    import torch.distributed as dist
+    from tcnerf_torch.parallel import dryrun
+    from tcnerf_torch.parallel.distributed import host_shard_indices
+    from tcnerf_torch.parallel.mesh import destroy_mesh, make_mesh
+
+    mesh = make_mesh(1, device=dev)
+    try:
+        print(f"parallel: make_mesh(1) on {dev.type}: {mesh}, backend "
+              f"{dist.get_backend()}")
+        (out, secs) = timed(lambda: dryrun.rank_checks(
+            mesh, dryrun.tiny_case(), dev))
+        print(f"check parallel {out['summary']} ({secs:.1f} s)")
+        parallel_render(mesh, dev, card, launches)
+        parallel_ascent(mesh, dev, card)
+        parallel_train(mesh, dev, card, launches, root)
+        got = [host_shard_indices(10), host_shard_indices(10, rng=3)]
+        want = np.arange(10)
+        ok = (np.array_equal(got[0], want)
+              and np.array_equal(np.sort(got[1]), want))
+        print(f"check parallel host_shard_indices at world size 1: "
+              f"{got[0].tolist()}, shuffled {got[1].tolist()} "
+              f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("host_shard_indices at world size 1")
+    finally:
+        destroy_mesh()
+
+
 KERNELS = {
     "K1": dict(name="resmlp_rows", source="tcnerf_torch/csrc/resmlp.cu",
                replaces="tcnerf/ops/pallas/resmlp.py:137",
@@ -3063,6 +3376,7 @@ def main(argv) -> int:
         timed_stores(lambda: phase_convergence(dev, card, launches, root),
                      "phase_convergence", card)
         phase_demos(dev, card)
+        phase_parallel(dev, card, launches, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rows = []

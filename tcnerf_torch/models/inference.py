@@ -25,10 +25,13 @@ Draws = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _ray_chunks(tgt_pose, tgt_intrinsics3, height: int, width: int,
-                chunk: int):
+                chunk: int, n_parts: int = 1):
+    """The target's rays as [n_chunks, 1, chunk, 3] origins and directions,
+    padded to a whole number of chunks for each of `n_parts` devices
+    (parallel/serve.py), and the count of real rays."""
     rays_o, rays_d = get_rays(width, height, tgt_pose, tgt_intrinsics3)
     n = height * width
-    n_pad = (-n) % chunk
+    n_pad = -(-n // (n_parts * chunk)) * chunk * n_parts - n
     dev = rays_o.device
     flat_o = torch.cat([rays_o.reshape(-1, 3),
                         torch.zeros((n_pad, 3), device=dev)])

@@ -166,16 +166,19 @@ def nerf_loss(model: nn.Module, inputs, labels: torch.Tensor,
 
 def nerf_train_step(state: TrainState, inputs, labels: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
-                    ray_chunk: Optional[int] = None):
+                    ray_chunk: Optional[int] = None,
+                    draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """One optimisation step: loss = MSE(coarse) + MSE(fine) (+ aux).
 
     inputs = (ray_o [B, R, 3], ray_d, src_images [B, V, H, W, 3],
     intrinsics [B, V, 4, 4], extrinsics_inv) and labels [B, R, 3] on the
-    model's device; the samples' uniforms are drawn from `generator`.
+    model's device; the samples' uniforms are `draws` (u_coarse, u_fine)
+    or drawn from `generator`.
     Returns (state, {"loss": loss before the update, a device scalar})."""
     model = state.model
-    b, r = inputs[0].shape[:2]
-    draws = draw_samples(model, b, r, generator, inputs[0].device)
+    if draws is None:
+        b, r = inputs[0].shape[:2]
+        draws = draw_samples(model, b, r, generator, inputs[0].device)
     state.optimizer.zero_grad()
     loss = nerf_loss(model, inputs, labels, *draws, ray_chunk=ray_chunk)
     loss.backward()

@@ -9,6 +9,7 @@ This file imports no JAX, so it also runs on a machine without it:
 (`--noconftest` because tests/conftest.py sets up JAX).
 """
 
+import functools
 import os
 
 import numpy as np
@@ -984,3 +985,51 @@ def test_hashgrid_field_on_card_matches_cpu(cuda, dtype):
         got = m.to(cuda)(x.to(cuda), d.to(cuda)).float().cpu()
     _close(got.numpy(), want.numpy(), 1e-3 if dtype == torch.float32
            else 2e-2)
+
+
+@pytest.mark.gpu
+def test_sharded_render_world1_nccl_matches_render_all_rays(cuda):
+    """parallel/serve.py on the card: make_mesh(1) forms a world-1 NCCL
+    group, and render_image_sharded of a tiny bf16 1-view model (hidden
+    128, pallas_mlp: K1 in both chain halves) equals render_all_rays with
+    the same generator seed bit for bit, with as many K1 launches."""
+    import torch.distributed as dist
+    from tcnerf_torch.data.synthetic import camera_ring
+    from tcnerf_torch.models.inference import render_all_rays
+    from tcnerf_torch.parallel.mesh import destroy_mesh, make_mesh
+    from tcnerf_torch.parallel.serve import render_image_sharded
+    h, w = 32, 40
+    model = MVNeRFRenderer(
+        n_views=1, n_samples=8, n_features=8, near=0.3, far=1.3,
+        original_image_size=(h, w), fusion="without", n_blocks=2,
+        hidden_size=HID, vit_size=(32, 32), vit_dim=32, vit_heads=2,
+        vit_hooks=(1, 2, 3, 4), pallas_mlp=True, dtype=torch.bfloat16)
+    model = model.to(cuda).eval()
+    init_params(model, torch.Generator(device=cuda).manual_seed(0))
+    src_cfg, tgt_cfg = camera_ring(2, height=h, width=w)
+    k4 = np.eye(4, dtype=np.float32)
+    k4[:3, :3] = src_cfg["intrinsics"].reshape(3, 3)
+    rng = np.random.default_rng(23)
+    args = (model, _tt(rng.uniform(size=(1, 1, h, w, 3))).to(cuda),
+            _tt(k4[None, None]).to(cuda),
+            _tt(np.linalg.inv(src_cfg["pose"])[None, None]).to(cuda),
+            _tt(rng.normal(size=(1, 1, h, w, 8)), torch.bfloat16).to(cuda),
+            _tt(tgt_cfg["pose"]).to(cuda),
+            _tt(tgt_cfg["intrinsics"].reshape(3, 3)).to(cuda), h, w, 256)
+    mesh = make_mesh(1)
+    try:
+        assert dist.get_backend() == "nccl"
+        outs, launches = [], []
+        for render in (functools.partial(render_image_sharded, mesh),
+                       render_all_rays):
+            RESMLP.counts.clear()
+            with torch.no_grad():
+                outs.append(render(*args, generator=torch.Generator(
+                    device=cuda).manual_seed(3)))
+            torch.cuda.synchronize()
+            launches.append(RESMLP.counts.get("resmlp_rows", 0))
+    finally:
+        destroy_mesh()
+    assert launches[0] == launches[1] > 0
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
