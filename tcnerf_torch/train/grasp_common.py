@@ -202,13 +202,15 @@ def build_pose_optimizer(model: GraspEBM, cfg) -> PoseOptimizer:
 
 def make_compute_features(model: GraspEBM):
     """compute(observations [1, n, H, W, 3], tokens or None) -> the
-    model's features on the host (numpy), without autograd."""
+    model's features on the host (numpy), without autograd. The images are
+    rounded to f32 (as JAX's `compute` casts them), then carried in the
+    model's dtype."""
     def compute(observations, tokens):
-        dev = next(model.parameters()).device
+        p = next(model.parameters())
         images = torch.as_tensor(np.asarray(observations, np.float32),
-                                 device=dev)
+                                 device=p.device).to(p.dtype)
         tok = None if tokens is None else torch.as_tensor(
-            np.asarray(tokens, np.int64), device=dev)
+            np.asarray(tokens, np.int64), device=p.device)
         with torch.no_grad():
             return model.compute_features(images, tok).cpu().numpy()
 

@@ -149,3 +149,13 @@ def test_plugins_load_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_convergence_tool_is_covered():
+    """The trained-quality tool (the stage-1 curves, the grasp round
+    reader and the strong validation) and the session it reads are among
+    the files checked above."""
+    for name in ("tcnerf_torch.tools.convergence",
+                 "tcnerf_torch.train.session",
+                 "tcnerf_torch.train.grasp_common"):
+        assert name in MODULES, name
