@@ -16,8 +16,8 @@ that both hold (epoch 0 is the initial weights, which differ between the
 packages). A resumed run logs its first epoch again; the last line of an
 epoch counts. With a grasp config (`--config goal_convergence_cpu`) it
 reads the run's `valid/results-<epoch>.pkl` instead (`read_grasp_rounds`)
-and prints each round's mean and best-of-sample oracle errors beside the
-JAX record in `docs/convergence.md` (GRASP_RECORDS).
+and prints each round's oracle errors (the top-5 mean and the top-1, by
+energy) beside the JAX record in `docs/convergence.md` (GRASP_RECORDS).
 
     python -m tcnerf_torch.tools.convergence --fit <config> [key=value ...] \\
         [--bar-db 1.5] [--at 1024] [--bar] [--ratio 0.5]
@@ -38,10 +38,15 @@ backbone, and prints both beside the record.
         --backbone <stage-1 model_path> --config <grasp config> \\
         [key=value ...] [--bar] [--ratio 0.5]
 
-runs that strong validation alone, on an existing run. With `--bar` a
-grasp fit or `--strong` exits 1 unless the trained `best_r_error_mean_t`
-is at most `--ratio` times the untrained one (the JAX record is printed,
-not held: the initial weights and arithmetic differ between the packages).
+runs that strong validation alone, on an existing run. Its ascent is the
+family's trainer's (`strong_sync`): a delta-NGF run's takes the t and r
+phases together, every other family's in turn. The JAX tool takes them in
+turn for every family (it sets no `sync`), so a delta-NGF score is printed
+without the record's strong-ascent error, which that ascent produced.
+With `--bar` a grasp fit or `--strong` exits 1 unless the trained
+`best_r_error_mean_t` is at most `--ratio` times the untrained one (the
+JAX record is printed, not held: the initial weights and arithmetic
+differ between the packages).
 """
 
 from __future__ import annotations
@@ -67,14 +72,18 @@ RECORDS = {
 # grasp config -> the JAX package's record of a run of it, in mm and
 # degrees (docs/ holds no per-round file for these runs): the chance floor
 # of the untrained readout, the best validation round and the best
-# checkpoint under strong ascent, all on the `backbone` config's fit
+# checkpoint under strong ascent, all on the `backbone` config's fit;
+# `strong_sync`: whether that strong ascent took the t and r phases
+# together (tools/strong_goal_validation.py sets no `sync`: in turn)
 GRASP_RECORDS = {
     "goal_convergence_cpu": dict(
         source="docs/convergence.md:102-110", backbone="nerf_convergence_cpu",
-        chance=(250.0, 105.0), best_round=(37.0, None), strong=(44.5, 39.0)),
+        chance=(250.0, 105.0), best_round=(37.0, None), strong=(44.5, 39.0),
+        strong_sync=False),
     "dngf_convergence_cpu": dict(
         source="docs/convergence.md:133-139", backbone="nerf_convergence_cpu",
-        chance=(None, None), best_round=(29.4, 47.8), strong=(47.5, 43.4)),
+        chance=(None, None), best_round=(29.4, 47.8), strong=(47.5, 43.4),
+        strong_sync=False),
 }
 
 # config-name prefix -> (trainer module under tcnerf_torch.train, its run
@@ -179,8 +188,9 @@ def family(config: str) -> str:
 
 def round_errors(results) -> Dict[str, float]:
     """One validation's errors as `session.log_results` logs them: the
-    mean over every scored pose and the mean of each sample's best (the
-    last of its `errors_r`), translation in mm and rotation in degrees."""
+    mean over every scored pose (each sample's top 5 by energy) and the
+    mean of each sample's top-1 pose by energy (the last of its
+    `errors_r`), translation in mm and rotation in degrees."""
     import numpy as np
 
     errors = [np.asarray(r["errors_r"]) for r in results]
@@ -213,27 +223,45 @@ def _mm(x) -> str:
 
 
 def format_grasp_rounds(rounds: Dict[int, Dict[str, float]]) -> str:
-    out = ["epoch  mean mm  mean deg  best mm  best deg"]
+    out = ["epoch  mean mm  mean deg  top-1 mm  top-1 deg"]
     for epoch, r in rounds.items():
         out.append(f"{epoch:5d}  {_mm(r['mean_r_error_t']):>7}  "
                    f"{_mm(r['mean_r_error_r']):>8}  "
-                   f"{_mm(r['best_r_error_mean_t']):>7}  "
-                   f"{_mm(r['best_r_error_mean_r']):>8}")
+                   f"{_mm(r['best_r_error_mean_t']):>8}  "
+                   f"{_mm(r['best_r_error_mean_r']):>9}")
     return "\n".join(out)
 
 
-def format_grasp_record(config: str) -> str:
+def _ascent(sync: bool) -> str:
+    return "t and r together" if sync else "t and r in turn"
+
+
+def format_grasp_record(config: str, with_strong: bool = True) -> str:
+    """The record's errors; its strong-ascent error only `with_strong`
+    (else the ascent that produced it is named in its place)."""
     rec = GRASP_RECORDS.get(config)
     if rec is None:
         return f"no JAX record of {config!r}"
     pairs = [f"{name} {_mm(t)} mm / {_mm(r)} deg" for name, (t, r) in (
-        ("chance floor", rec["chance"]), ("best round", rec["best_round"]),
-        ("strong ascent of best", rec["strong"]))]
+        ("chance floor", rec["chance"]), ("best round", rec["best_round"]))]
+    ascent = _ascent(rec["strong_sync"])
+    t, r = rec["strong"]
+    pairs.append(f"strong ascent of best ({ascent}) {_mm(t)} mm / {_mm(r)} "
+                 f"deg" if with_strong else
+                 f"strong ascent of best not printed (its ascent took "
+                 f"{ascent})")
     return (f"JAX record ({rec['source']}, on the {rec['backbone']} "
             f"backbone): {'; '.join(pairs)}")
 
 
 # ---------------------------------------------------- strong validation
+
+def strong_sync(config: str) -> bool:
+    """Whether the strong ascent of a grasp config's run takes the t and r
+    phases together (`sync`), as its family's trainer validates: a
+    delta-NGF run's does, every other family's takes them in turn."""
+    return family(config) == "dngf"
+
 
 def strong_results(config: str, model_path, backbone_path,
                    overrides: Sequence[str] = (), device=None,
@@ -249,9 +277,9 @@ def strong_results(config: str, model_path, backbone_path,
     validation's pose optimizer, the configured oracle, the validation
     samples (a language run's with their instruction's tokens) and
     `np.random.default_rng(0)`. The family's trainer decides the dataset,
-    the fusion, the stored components and the ascent's `sync`. `dtype`
-    casts the loaded model (f64 for parity checks). On the card unless
-    `device` (or the config's `device`) says otherwise."""
+    the fusion and the stored components; `strong_sync` the ascent's
+    `sync`. `dtype` casts the loaded model (f64 for parity checks). On the
+    card unless `device` (or the config's `device`) says otherwise."""
     import numpy as np
 
     from ..data.loaders import (load_dataset, load_dataset_baseline,
@@ -273,7 +301,7 @@ def strong_results(config: str, model_path, backbone_path,
          f"{oc_key}.optimization_config.n_optimization_steps={n_steps}"],
         config)
     dev = resolve_device(device or cfg.get("device"))
-    fusion = tokenize_fn = sync = None
+    fusion = tokenize_fn = None
     extras = ()
     valid_path = os.path.join(cfg.dataset.path, "valid")
     if kind == "goal":
@@ -286,7 +314,7 @@ def strong_results(config: str, model_path, backbone_path,
         G.prepare_datasets(cfg, "language")
         dataset = load_dataset_language(cfg.dataset.n_perspectives,
                                         valid_path)
-        fusion, sync = cfg.grasp_training.get("fusion", "v4"), False
+        fusion = cfg.grasp_training.get("fusion", "v4")
         extras = ("combine_clip_visual",)
     else:
         G.prepare_datasets(cfg, "grad")
@@ -295,7 +323,6 @@ def strong_results(config: str, model_path, backbone_path,
             record_grasp_pose=True,
             record_order=cfg.dataset.get("record_order", False),
             dataset_type="valid")
-        sync = kind == "dngf"
     model = G.build_grasp_model(cfg, fusion=fusion, device=dev)
     _, loaded = G.load_backbone(model, cfg, fusion=fusion is not None)
     if not loaded:
@@ -307,9 +334,7 @@ def strong_results(config: str, model_path, backbone_path,
     if dtype is not None:
         model.to(dtype)
     optimization = cfg.validation.grasp_opt_config.optimization_config
-    oc = optimization.to_dict()
-    if sync is not None:
-        oc["sync"] = sync
+    oc = {**optimization.to_dict(), "sync": strong_sync(config)}
     return validate(G.build_pose_optimizer(model, cfg), oc,
                     G.collect_valid_data(dataset, cfg, model, tokenize_fn),
                     G.build_oracle(cfg), np.random.default_rng(0))
@@ -322,7 +347,7 @@ def strong_validate(config: str, model_path, backbone_path,
                     checkpoint: Optional[str] = "best", dtype=None
                     ) -> Dict[str, float]:
     """`session.log_results("strong", ...)` of `strong_results`: the mean
-    and best-of-sample errors in mm and degrees."""
+    (top 5) and top-1 errors in mm and degrees."""
     from ..train.session import log_results
 
     return log_results("strong", strong_results(
@@ -336,8 +361,8 @@ def controlled_strong(config: str, model_path, backbone_path,
                       n_steps: int = STRONG_STEPS) -> Dict[str, dict]:
     """`strong_validate` of the run's `best` checkpoint and of the
     untrained readout (seeded from `seed`) on the same backbone, with the
-    same rng, samples, guesses and steps: {"trained": ..., "untrained":
-    ...}."""
+    same rng, samples, guesses, steps and ascent: {"trained": ...,
+    "untrained": ...}."""
     return {name: strong_validate(config, model_path, backbone_path,
                                   overrides, device, n_guesses, n_steps,
                                   checkpoint)
@@ -346,22 +371,27 @@ def controlled_strong(config: str, model_path, backbone_path,
 
 
 def passes_ratio(strong: Dict[str, dict], ratio: float) -> bool:
-    """The trained translational best-of-sample error is at most `ratio`
-    times the untrained one's."""
+    """The trained translational top-1 error (`best_r_error_mean_t`) is
+    at most `ratio` times the untrained one's."""
     return (strong["trained"]["best_r_error_mean_t"]
             <= ratio * strong["untrained"]["best_r_error_mean_t"])
 
 
 def format_strong(config: str, strong: Dict[str, dict], n_guesses: int,
                   n_steps: int) -> str:
+    """`strong` beside the record, whose strong-ascent error is printed
+    only if this tool's ascent for `config` is the one that produced it."""
+    sync = strong_sync(config)
     out = [f"strong ascent ({n_guesses} guesses, {n_steps} steps, "
-           f"np.random.default_rng(0)):"]
+           f"{_ascent(sync)}, np.random.default_rng(0)):"]
     for name, r in strong.items():
         out.append(f"  {name:9s} mean {_mm(r['mean_r_error_t'])} mm / "
-                   f"{_mm(r['mean_r_error_r'])} deg, best "
+                   f"{_mm(r['mean_r_error_r'])} deg, top-1 "
                    f"{_mm(r['best_r_error_mean_t'])} mm / "
                    f"{_mm(r['best_r_error_mean_r'])} deg")
-    out.append("  " + format_grasp_record(config))
+    rec = GRASP_RECORDS.get(config)
+    out.append("  " + format_grasp_record(
+        config, rec is None or rec["strong_sync"] == sync))
     return "\n".join(out)
 
 
@@ -377,7 +407,8 @@ def report_strong(config: str, model_path, backbone_path,
     if bar is None:
         return True
     ok = passes_ratio(strong, bar)
-    print(f"bar: trained best {_mm(strong['trained']['best_r_error_mean_t'])}"
+    print(f"bar: trained top-1 "
+          f"{_mm(strong['trained']['best_r_error_mean_t'])}"
           f" mm <= {bar} x untrained "
           f"{_mm(strong['untrained']['best_r_error_mean_t'])} mm "
           f"{'OK' if ok else 'FAIL'}")

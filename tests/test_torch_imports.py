@@ -1,6 +1,6 @@
-"""The port stands alone: no module of tcnerf_torch/ and not chip_smoke.py
-imports JAX, flax, optax, msgpack, tensorflow or the JAX package
-(tcnerf)."""
+"""The port stands alone: no module of tcnerf_torch/, not chip_smoke.py and
+not the scripts that drive the port imports JAX, flax, optax, msgpack,
+tensorflow or the JAX package (tcnerf)."""
 
 import ast
 from pathlib import Path
@@ -9,6 +9,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "tcnerf_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# scripts/jax_run.py runs the JAX package; these drive the port alone
+PORT_SCRIPTS = [ROOT / "scripts" / name
+                for name in ("round_parity.py", "strong_alternate.py")]
 BANNED = {"jax", "jaxlib", "flax", "optax", "msgpack", "tensorflow",
           "tcnerf"}
 
@@ -22,7 +25,8 @@ def _imported_roots(tree):
             yield (node.module or "").split(".")[0]
 
 
-@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", FILES + PORT_SCRIPTS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = sorted(set(_imported_roots(tree)) & BANNED)
