@@ -2982,6 +2982,14 @@ GRASP_BACKBONE_CUT = ["nerf_training.n_epochs=64"]
 GRASP_CONVERGENCE_CUT = ["grasp_training.n_epochs=24"]
 GRASP_STRONG_CUT = dict(n_guesses=1024, n_steps=32)
 GRASP_RATIO = 0.5
+# then `language_convergence_cpu` (fusion v4, train_fusion, batch 2) on the
+# same backbone for one validation round (8 epochs, 256 steps); its errors
+# are printed beside the untrained readout's at the round's own ascent
+# (256 guesses, 16 steps in turn), with no bar: the JAX record at full
+# width is flat through epoch 16
+LANGUAGE_CONVERGENCE = "language_convergence_cpu"
+LANGUAGE_CONVERGENCE_CUT = ["grasp_training.n_epochs=8"]
+LANGUAGE_STRONG_CUT = dict(n_guesses=256, n_steps=16)
 
 
 def phase_grasp_convergence(dev, card, launches, root):
@@ -3076,6 +3084,94 @@ def phase_grasp_convergence(dev, card, launches, root):
     if not ok:
         raise AssertionError(f"grasp convergence: trained {t:.2f} mm not "
                              f"below untrained {u:.2f} mm")
+    language_convergence(dev, card, data_dir)
+
+
+def language_convergence(dev, card, data_dir):
+    """`language_convergence_cpu` fitted to LANGUAGE_CONVERGENCE_CUT on the
+    phase's backbone (`train_fusion`: the V4 decoder trains with the
+    readout). Held: finite step metrics; the trainable tensors are the
+    readout's and V4's, and every one of them moved; every other tensor
+    bit for bit the seeded model's with the backbone loaded; the round
+    pickle read back as logged, with finite designated-target errors; no
+    chain kernel. The round and the untrained readout at
+    LANGUAGE_STRONG_CUT are printed, not held."""
+    import numpy as np
+    import torch
+    from tcnerf_torch.tools import convergence
+    from tcnerf_torch.train import grasp_common
+
+    t0 = time.perf_counter()
+    reset_counts()
+    overrides = [data_dir, *LANGUAGE_CONVERGENCE_CUT]
+    cfg, state, history = convergence.fit(LANGUAGE_CONVERGENCE, overrides)
+    gt = cfg.grasp_training
+    finite = all(np.isfinite(v) for s in history["steps"]
+                 for v in s.values())
+    seeded = grasp_common.build_grasp_model(cfg, fusion=gt.fusion,
+                                            device=dev)
+    grasp_common.load_backbone(seeded, cfg, fusion=True)
+    trained = set(state.names)
+    groups = ("grasp_readout", "combine_clip_visual")
+    moved = dict.fromkeys(groups, 0)
+    still, same = [], 0
+    for (n, p), q in zip(state.model.named_parameters(),
+                         seeded.parameters()):
+        if n in trained:
+            if torch.equal(p, q):
+                still.append(n)
+            else:
+                moved[n.split(".")[0]] += 1
+        elif torch.equal(p, q):
+            same += 1
+        else:
+            raise AssertionError(f"language convergence: frozen {n} changed")
+    del seeded
+    ok = finite and not still and {
+        n.split(".")[0] for n in trained} == set(groups)
+    print(f"check language convergence ({LANGUAGE_CONVERGENCE}, cut "
+          f"{LANGUAGE_CONVERGENCE_CUT}, train_fusion): "
+          f"{len(history['steps'])} steps, finite metrics {finite}; moved "
+          f"tensors {moved} of {len(trained)} trainable, unmoved {still}; "
+          f"{same} others bit for bit the seeded model's with the backbone "
+          f"loaded [{card}] {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("language convergence: not finite, a trainable "
+                             f"tensor did not move ({still}), or the "
+                             "trainable tensors are not the V4 decoder's "
+                             "and the readout's")
+    rounds = convergence.read_grasp_rounds(gt.model_path)
+    logged = {e: d for e, d, _ in history["valid"] if e is not None}
+    ok = (list(rounds) == sorted(logged) == [gt.n_epochs] and all(
+        np.isfinite(v) and np.isclose(v, logged[e][k], rtol=1e-12, atol=0)
+        for e, row in rounds.items() for k, v in row.items()))
+    print(convergence.format_grasp_rounds(rounds))
+    print(f"check language convergence rounds: {list(rounds)} read back as "
+          f"logged, finite designated-target errors "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("language convergence: the round pickle does "
+                             "not read back as logged")
+    untrained = convergence.strong_validate(
+        LANGUAGE_CONVERGENCE, gt.model_path, gt.backbone_path, overrides,
+        dev, checkpoint=None, **LANGUAGE_STRONG_CUT)
+    r = rounds[gt.n_epochs]
+    print(f"language convergence after {gt.n_epochs} epochs (not held): "
+          f"mean {r['mean_r_error_t']:.2f} mm, top-1 "
+          f"{r['best_r_error_mean_t']:.2f} mm; untrained readout "
+          f"({LANGUAGE_STRONG_CUT['n_guesses']} guesses, "
+          f"{LANGUAGE_STRONG_CUT['n_steps']} steps in turn, rng 0): mean "
+          f"{untrained['mean_r_error_t']:.2f} mm, top-1 "
+          f"{untrained['best_r_error_mean_t']:.2f} mm [{card}]")
+    counts = read_counts()
+    chain = {k: counts.get(key, 0) for k, key in CHAIN_COUNTS.items()}
+    ok = not any(chain.values())
+    print(f"check language convergence chain-kernel launches: {chain} "
+          f"{'OK' if ok else 'FAIL'}; {time.perf_counter() - t0:.1f} s "
+          f"added to the phase")
+    if not ok:
+        raise AssertionError("language convergence: a chain kernel "
+                             "launched")
 
 
 def phase_demos(dev, card):

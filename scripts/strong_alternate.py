@@ -9,8 +9,8 @@ family's trainer's ascent (a delta-NGF run's synchronized).
 
 takes the arguments of `python -m tcnerf_torch.tools.convergence` and
 prints what it prints, the JAX record's strong-ascent error included
-(that ascent produced it). scripts/dngf_arms.sh `score <arm> <seed>
-alternate` scores the delta-NGF arms with it."""
+(that ascent produced it). scripts/arms_verdict.py reads its logs of
+the delta-NGF arms under the `strong_alternate` tag."""
 
 import contextlib
 import os

@@ -44,9 +44,14 @@ phases together, every other family's in turn. The JAX tool takes them in
 turn for every family (it sets no `sync`), so a delta-NGF score is printed
 without the record's strong-ascent error, which that ascent produced.
 With `--bar` a grasp fit or `--strong` exits 1 unless the trained
-`best_r_error_mean_t` is at most `--ratio` times the untrained one (the
-JAX record is printed, not held: the initial weights and arithmetic
-differ between the packages).
+`best_r_error_mean_t` is at most `--ratio` times the untrained one (by
+default 0.5, or the record's `ratio`: for `language_convergence` the
+trained error must be below the untrained one; the JAX record's strong
+error is printed, not held: the initial weights and arithmetic differ
+between the packages). Where docs/ keeps the record's
+rounds (`language_convergence`), they are printed beside the run's, and
+`--bar` also exits 1 unless the run's lowest `mean_r_error_t` over the
+record's epochs is at most `round_bar` (1.1) times the record's lowest.
 """
 
 from __future__ import annotations
@@ -70,11 +75,19 @@ RECORDS = {
 }
 
 # grasp config -> the JAX package's record of a run of it, in mm and
-# degrees (docs/ holds no per-round file for these runs): the chance floor
-# of the untrained readout, the best validation round and the best
-# checkpoint under strong ascent, all on the `backbone` config's fit;
-# `strong_sync`: whether that strong ascent took the t and r phases
-# together (tools/strong_goal_validation.py sets no `sync`: in turn)
+# degrees: the chance floor of the untrained readout, the best validation
+# round and the best checkpoint under strong ascent (None: not recorded),
+# all on the `backbone` config's fit; `strong_sync`: whether that strong
+# ascent took the t and r phases together (tools/strong_goal_validation.py
+# sets no `sync`: in turn). Where docs/ keeps the run's rounds (`rounds`,
+# one line per validation as `log_results` logs it), they are printed
+# beside the run's, and `--bar` also holds `round_bar`: the run's lowest
+# `mean_r_error_t` over the record's epochs is at most that many times the
+# record's lowest; `ratio` is the record's default `--ratio`, and with
+# `strict` the trained error must be below it, not at it. `jax_fits`:
+# the strong top-1 (mm) of the JAX trainer's own fits at seeds 0-5 on the
+# port's backbone, scored by the port's tool under each ascent, printed
+# beside a score of that ascent.
 GRASP_RECORDS = {
     "goal_convergence_cpu": dict(
         source="docs/convergence.md:102-110", backbone="nerf_convergence_cpu",
@@ -83,7 +96,16 @@ GRASP_RECORDS = {
     "dngf_convergence_cpu": dict(
         source="docs/convergence.md:133-139", backbone="nerf_convergence_cpu",
         chance=(None, None), best_round=(29.4, 47.8), strong=(47.5, 43.4),
-        strong_sync=False),
+        strong_sync=False,
+        jax_fits=dict(source="PERF.md section 5, J 0-5",
+                      together=(34.49, 19.93, 21.95, 23.17, 34.27, 34.85),
+                      in_turn=(98.00, 26.87, 24.57, 25.57, 33.88, 22.85))),
+    "language_convergence": dict(
+        source="docs/convergence.md:180-197", backbone="nerf_convergence",
+        chance=(330.0, None), best_round=(269.4, None), strong=(None, None),
+        strong_sync=False,
+        rounds="docs/convergence_language_tpu_r4_metrics.jsonl",
+        round_bar=1.1, ratio=1.0, strict=True),
 }
 
 # config-name prefix -> (trainer module under tcnerf_torch.train, its run
@@ -222,14 +244,55 @@ def _mm(x) -> str:
     return "-" if x is None else f"{x:.2f}"
 
 
-def format_grasp_rounds(rounds: Dict[int, Dict[str, float]]) -> str:
-    out = ["epoch  mean mm  mean deg  top-1 mm  top-1 deg"]
-    for epoch, r in rounds.items():
-        out.append(f"{epoch:5d}  {_mm(r['mean_r_error_t']):>7}  "
-                   f"{_mm(r['mean_r_error_r']):>8}  "
-                   f"{_mm(r['best_r_error_mean_t']):>8}  "
-                   f"{_mm(r['best_r_error_mean_r']):>9}")
+def record_rounds(config: str) -> Dict[int, Dict[str, float]]:
+    """epoch -> the JAX record's round of a grasp config, from the file
+    GRASP_RECORDS names (`rounds`); empty where docs/ keeps none."""
+    path = GRASP_RECORDS.get(config, {}).get("rounds")
+    return dict(sorted(read_metrics(REPO / path).items())) if path else {}
+
+
+_ROUND_KEYS = ("mean_r_error_t", "mean_r_error_r", "best_r_error_mean_t",
+               "best_r_error_mean_r")
+
+
+def format_grasp_rounds(rounds: Dict[int, Dict[str, float]],
+                        record: Optional[Dict[int, dict]] = None) -> str:
+    """The run's rounds; with the record's rounds, those beside them (mean
+    and top-1 translational errors) at every epoch either holds."""
+    record = record or {}
+    out = ["epoch  mean mm  mean deg  top-1 mm  top-1 deg"
+           + ("  record mean mm  record top-1 mm" if record else "")]
+    for epoch in sorted(set(rounds) | set(record)):
+        r = rounds.get(epoch, dict.fromkeys(_ROUND_KEYS))
+        line = (f"{epoch:5d}  {_mm(r['mean_r_error_t']):>7}  "
+                f"{_mm(r['mean_r_error_r']):>8}  "
+                f"{_mm(r['best_r_error_mean_t']):>8}  "
+                f"{_mm(r['best_r_error_mean_r']):>9}")
+        if record:
+            rec = record.get(epoch, {})
+            line += (f"  {_mm(rec.get('mean_r_error_t')):>14}  "
+                     f"{_mm(rec.get('best_r_error_mean_t')):>15}")
+        out.append(line)
     return "\n".join(out)
+
+
+def passes_rounds(config: str, rounds: Dict[int, Dict[str, float]]
+                  ) -> Optional[bool]:
+    """The record's round bar (GRASP_RECORDS `round_bar`): the run's
+    lowest `mean_r_error_t` over the record's epochs is at most
+    `round_bar` times the record's lowest; None where the record holds no
+    such bar. A run without those epochs fails."""
+    bar = GRASP_RECORDS.get(config, {}).get("round_bar")
+    if bar is None:
+        return None
+    record = record_rounds(config)
+    got = [rounds[e]["mean_r_error_t"] for e in record if e in rounds]
+    want = min(r["mean_r_error_t"] for r in record.values())
+    ok = bool(got) and min(got) <= bar * want
+    print(f"round bar: lowest mean {_mm(min(got) if got else None)} mm over "
+          f"epochs {sorted(record)} <= {bar} x the record's {_mm(want)} mm "
+          f"{'OK' if ok else 'FAIL'}")
+    return ok
 
 
 def _ascent(sync: bool) -> str:
@@ -246,10 +309,13 @@ def format_grasp_record(config: str, with_strong: bool = True) -> str:
         ("chance floor", rec["chance"]), ("best round", rec["best_round"]))]
     ascent = _ascent(rec["strong_sync"])
     t, r = rec["strong"]
-    pairs.append(f"strong ascent of best ({ascent}) {_mm(t)} mm / {_mm(r)} "
-                 f"deg" if with_strong else
-                 f"strong ascent of best not printed (its ascent took "
-                 f"{ascent})")
+    if t is None:
+        pairs.append("no strong-ascent record")
+    else:
+        pairs.append(f"strong ascent of best ({ascent}) {_mm(t)} mm / "
+                     f"{_mm(r)} deg" if with_strong else
+                     f"strong ascent of best not printed (its ascent took "
+                     f"{ascent})")
     return (f"JAX record ({rec['source']}, on the {rec['backbone']} "
             f"backbone): {'; '.join(pairs)}")
 
@@ -370,11 +436,13 @@ def controlled_strong(config: str, model_path, backbone_path,
                                      ("untrained", None))}
 
 
-def passes_ratio(strong: Dict[str, dict], ratio: float) -> bool:
+def passes_ratio(strong: Dict[str, dict], ratio: float,
+                 strict: bool = False) -> bool:
     """The trained translational top-1 error (`best_r_error_mean_t`) is
-    at most `ratio` times the untrained one's."""
-    return (strong["trained"]["best_r_error_mean_t"]
-            <= ratio * strong["untrained"]["best_r_error_mean_t"])
+    at most `ratio` times the untrained one's (below it, with `strict`)."""
+    trained = strong["trained"]["best_r_error_mean_t"]
+    bound = ratio * strong["untrained"]["best_r_error_mean_t"]
+    return trained < bound if strict else trained <= bound
 
 
 def format_strong(config: str, strong: Dict[str, dict], n_guesses: int,
@@ -392,7 +460,23 @@ def format_strong(config: str, strong: Dict[str, dict], n_guesses: int,
     rec = GRASP_RECORDS.get(config)
     out.append("  " + format_grasp_record(
         config, rec is None or rec["strong_sync"] == sync))
+    fits = (rec or {}).get("jax_fits")
+    if fits is not None:
+        out.append("  " + format_jax_fits(fits, sync))
     return "\n".join(out)
+
+
+def format_jax_fits(fits: dict, sync: bool) -> str:
+    """The spread of the JAX trainer's own fits (GRASP_RECORDS
+    `jax_fits`) under the ascent `sync` names: strong top-1 per seed."""
+    import statistics
+
+    mm = fits["together" if sync else "in_turn"]
+    return (f"the JAX trainer's own fits at seeds 0-{len(mm) - 1} "
+            f"({fits['source']}), strong top-1 under this ascent: "
+            f"{_mm(min(mm))}-{_mm(max(mm))} mm, mean "
+            f"{_mm(statistics.mean(mm))}, median "
+            f"{_mm(statistics.median(mm))}")
 
 
 def report_strong(config: str, model_path, backbone_path,
@@ -406,10 +490,11 @@ def report_strong(config: str, model_path, backbone_path,
     print(format_strong(config, strong, n_guesses, n_steps))
     if bar is None:
         return True
-    ok = passes_ratio(strong, bar)
+    strict = GRASP_RECORDS.get(config, {}).get("strict", False)
+    ok = passes_ratio(strong, bar, strict)
     print(f"bar: trained top-1 "
           f"{_mm(strong['trained']['best_r_error_mean_t'])}"
-          f" mm <= {bar} x untrained "
+          f" mm {'<' if strict else '<='} {bar} x untrained "
           f"{_mm(strong['untrained']['best_r_error_mean_t'])} mm "
           f"{'OK' if ok else 'FAIL'}")
     return ok
@@ -425,6 +510,8 @@ def fit(config: str, overrides: Sequence[str] = ()):
     import statistics
     import time
 
+    import torch
+
     from ..train import config as C
     from .common import device_line
 
@@ -433,34 +520,57 @@ def fit(config: str, overrides: Sequence[str] = ()):
     run = getattr(importlib.import_module(f"..train.{module}", __package__),
                   name)
     cfg = C.load_config(list(overrides), config)
+    kernels = _kernel_libs()
+    before = [dict(lib.counts) for lib in kernels]
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = run(cfg)
     wall = time.perf_counter() - t0
     state, history = out if kind == "nerf" else (out.state, out.history)
     steps = history["steps"][1:] or history["steps"]
+    device = next(state.model.parameters()).device
     print(f"fit {config} {' '.join(overrides)}: {len(history['steps'])} "
           f"steps and {len(history['valid'])} validations in {wall:.1f} s "
           f"(dataset synthesis included); step after the first: median "
           f"{1e3 * statistics.median(s['step_s'] for s in steps):.1f} ms, "
           f"waiting for the batch median "
           f"{1e3 * statistics.median(s['data_s'] for s in steps):.2f} ms"
-          f" [{device_line(next(state.model.parameters()).device)}]")
+          f" [{device_line(device)}]")
+    if device.type == "cuda":
+        counts = {k: v - was.get(k, 0) for lib, was in zip(kernels, before)
+                  for k, v in lib.counts.items() if v > was.get(k, 0)}
+        print(f"fit peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB (max_memory_allocated); chain-kernel launches {counts} "
+              f"over {len(history['steps'])} steps and "
+              f"{len(history['valid'])} validations")
     return cfg, state, history
+
+
+def _kernel_libs():
+    """The port's kernel libraries, whose `counts` its wrappers raise."""
+    from ..ops.gather import GATHER
+    from ..ops.resmlp import RESMLP
+    from ..ops.swg import SWG
+    return RESMLP, SWG, GATHER
 
 
 def _grasp_report(config: str, model_path, backbone_path,
                   overrides: Sequence[str], bar: Optional[float],
                   strong: bool, **kw) -> bool:
-    """A grasp run's curve beside the record, and with `strong` the
-    controlled strong validation (`kw`: its guesses and steps); whether it
-    holds `bar`."""
+    """A grasp run's curve beside the record (its rounds too, where docs/
+    keeps them), and with `strong` the controlled strong validation (`kw`:
+    its guesses and steps); whether it holds `bar` and, under a `bar`, the
+    record's round bar (`passes_rounds`)."""
     print(f"run {os.fspath(model_path)} ({config})")
-    print(format_grasp_rounds(read_grasp_rounds(model_path)))
+    rounds = read_grasp_rounds(model_path)
+    print(format_grasp_rounds(rounds, record_rounds(config)))
+    ok = bar is None or passes_rounds(config, rounds) is not False
     if not strong:
         print(format_grasp_record(config))
-        return True
+        return ok
     return report_strong(config, model_path, backbone_path, overrides, bar,
-                         **kw)
+                         **kw) and ok
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -488,14 +598,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--bar", action="store_true",
                         help="grasp: hold the trained best error at --ratio "
                              "of the untrained one")
-    parser.add_argument("--ratio", type=float, default=0.5)
+    parser.add_argument("--ratio", type=float, default=None,
+                        help="default: the record's `ratio`, else 0.5")
     parser.add_argument("--guesses", type=int, default=STRONG_GUESSES,
                         help="the strong ascent's initial guesses")
     parser.add_argument("--steps", type=int, default=STRONG_STEPS,
                         help="the strong ascent's steps")
     args = parser.parse_args(argv)
     strong = dict(n_guesses=args.guesses, n_steps=args.steps)
-    bar = args.ratio if args.bar else None
+    config = args.run if args.fit else args.config
+    ratio = (args.ratio if args.ratio is not None else
+             GRASP_RECORDS.get(config, {}).get("ratio", 0.5))
+    bar = ratio if args.bar else None
     if args.fit or args.strong:
         logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                             format="%(asctime)s %(levelname)s %(message)s")
@@ -507,7 +621,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                                   overrides, bar, **strong) else 1
     if args.run is None:
         parser.error("a run (or with --fit, a config) is required")
-    config = args.run if args.fit else args.config
     if family(config) != "nerf":
         if args.fit:
             cfg, _, _ = fit(config, args.overrides)

@@ -498,15 +498,27 @@ _ERRS = {"epoch": "strong", "mean_r_error_t": 200.0, "mean_r_error_r": 100.0,
          "best_r_error_mean_t": 100.0, "best_r_error_mean_r": 90.0}
 
 
-@pytest.mark.parametrize("trained_mm,flags,rc", [
-    (40.0, ["--bar"], 0), (50.0, ["--bar"], 0), (60.0, ["--bar"], 1),
-    (60.0, [], 0), (60.0, ["--bar", "--ratio", "0.7"], 0)],
-    ids=["below", "at", "above", "no-bar", "ratio"])
-def test_strong_bar_exit_code(monkeypatch, capsys, trained_mm, flags, rc):
+_GOAL = ("goal_convergence_cpu", "44.50 mm")
+_LANGUAGE = ("language_convergence", "no strong-ascent record")
+
+
+@pytest.mark.parametrize("trained_mm,flags,rc,record", [
+    (40.0, ["--bar"], 0, _GOAL), (50.0, ["--bar"], 0, _GOAL),
+    (60.0, ["--bar"], 1, _GOAL), (60.0, [], 0, _GOAL),
+    (60.0, ["--bar", "--ratio", "0.7"], 0, _GOAL),
+    (99.0, ["--bar"], 0, _LANGUAGE), (100.0, ["--bar"], 1, _LANGUAGE),
+    (101.0, ["--bar"], 1, _LANGUAGE),
+    (60.0, ["--bar", "--ratio", "0.5"], 1, _LANGUAGE)],
+    ids=["below", "at", "above", "no-bar", "ratio", "language-below",
+         "language-at", "language-above", "language-ratio"])
+def test_strong_bar_exit_code(monkeypatch, capsys, trained_mm, flags, rc,
+                              record):
     """`--strong <run> --backbone <path> --bar` exits 1 only when the
-    trained best translational error is above `--ratio` (0.5 unless
-    given) times the untrained one (100 mm here); both rows and the JAX
-    record are printed."""
+    trained best translational error is above `--ratio` times the
+    untrained one (100 mm here): 0.5 unless given, or the record's own
+    ratio; `language_convergence`'s is strict, trained below untrained,
+    so a tie fails; both rows and the JAX record are printed."""
+    config, printed = record
     seen = []
     monkeypatch.setattr(convergence, "controlled_strong",
                         lambda *a, **kw: seen.append(a) or {
@@ -514,12 +526,51 @@ def test_strong_bar_exit_code(monkeypatch, capsys, trained_mm, flags, rc):
                                             best_r_error_mean_t=trained_mm),
                             "untrained": _ERRS})
     argv = ["--strong", "/run", "--backbone", "/bb", "--config",
-            "goal_convergence_cpu", "device=cpu", "data_dir=/d", *flags]
+            config, "device=cpu", "data_dir=/d", *flags]
     assert convergence.main(argv) == rc
-    assert seen == [("goal_convergence_cpu", "/run", "/bb",
+    assert seen == [(config, "/run", "/bb",
                      ["device=cpu", "data_dir=/d"], None, 1024, 32)]
     out = capsys.readouterr().out
-    assert "trained" in out and "untrained" in out and "44.50 mm" in out
+    assert "trained" in out and "untrained" in out and printed in out
+    assert ("FAIL" in out) == (rc == 1)
+
+
+def _rounds(path, mean_mm):
+    """`<path>/valid/results-<epoch>.pkl` as the session pickles a round:
+    four samples whose five scored poses all err by `mean_mm[epoch]`."""
+    import pickle
+
+    os.makedirs(os.path.join(path, "valid"), exist_ok=True)
+    for epoch, mm in mean_mm.items():
+        errors = np.tile([mm / 1000, 0.5], (5, 1))
+        with open(os.path.join(path, "valid", f"results-{epoch}.pkl"),
+                  "wb") as f:
+            pickle.dump([{"errors_r": errors} for _ in range(4)], f)
+
+
+@pytest.mark.parametrize("mean_mm,flags,rc", [
+    ({8: 330.0, 16: 310.0, 24: 290.0, 32: 250.0}, ["--bar"], 0),
+    ({8: 296.0, 16: 330.0, 24: 330.0}, ["--bar"], 0),
+    ({8: 330.0, 16: 310.0, 24: 300.0, 32: 200.0}, ["--bar"], 1),
+    ({32: 200.0}, ["--bar"], 1),
+    ({8: 330.0, 16: 310.0, 24: 300.0}, [], 0)],
+    ids=["language-rounds-pass", "language-rounds-at-epoch-8",
+         "language-rounds-fail", "language-rounds-missing",
+         "language-rounds-no-bar"])
+def test_language_round_bar_exit_code(tmp_path, capsys, mean_mm, flags, rc):
+    """A `language_convergence` run's rounds print beside the JAX record's
+    (docs/convergence_language_tpu_r4_metrics.jsonl: 330.68 / 329.65 /
+    269.36 mm at epochs 8 / 16 / 24, top-1 277.40 at 24); under `--bar`
+    the tool exits 1 unless the run's lowest `mean_r_error_t` over epochs
+    8 / 16 / 24 is at most 1.1 x 269.36 mm (epoch 32 is outside it)."""
+    _rounds(tmp_path, mean_mm)
+    argv = [str(tmp_path), "--config", "language_convergence", *flags]
+    assert convergence.main(argv) == rc
+    out = capsys.readouterr().out
+    for text in ("record mean mm", "330.68", "329.65", "269.36", "277.40",
+                 "no strong-ascent record"):
+        assert text in out
+    assert ("round bar" in out) == bool(flags)
     assert ("FAIL" in out) == (rc == 1)
 
 
@@ -532,7 +583,13 @@ def test_grasp_records_cite_the_convergence_doc():
         lo, hi = (int(x) for x in rec["source"].rsplit(":", 1)[1].split("-"))
         text = " ".join(lines[lo - 1:hi])
         t, r = rec["strong"]
-        assert f"{t} mm / {r}" in text, name
+        if t is None:   # no strong-ascent record: its best round is cited
+            assert f"{rec['best_round'][0]} mm" in text, name
+            best = min(convergence.record_rounds(name).values(),
+                       key=lambda row: row["mean_r_error_t"])
+            assert round(best["mean_r_error_t"], 1) == rec["best_round"][0]
+        else:
+            assert f"{t} mm / {r}" in text, name
         assert rec["backbone"] in convergence.RECORDS
         assert convergence.family(name) in convergence.TRAINERS
 
@@ -558,3 +615,19 @@ def test_strong_record_printed_only_under_its_ascent(monkeypatch):
     assert "(t and r in turn) 47.50 mm" in alternate
     assert "together" not in alternate
     assert convergence.strong_sync("dngf_convergence_cpu")
+
+
+def test_dngf_record_prints_the_jax_fits_under_each_ascent():
+    """The delta-NGF record carries the JAX trainer's own fits at seeds
+    0-5 (PERF.md section 5, J 0-5): a synchronized score prints their
+    synchronized spread (19.93-34.85 mm, mean 28.11, median 28.72), a
+    score in turn through scripts/strong_alternate.py the spread in turn
+    (22.85-98.00 mm); no other record has such fits."""
+    strong = {"trained": _ERRS, "untrained": _ERRS}
+    sync = convergence.format_strong("dngf_convergence_cpu", strong, 8, 2)
+    assert "19.93-34.85 mm, mean 28.11, median 28.72" in sync
+    with _script("strong_alternate").in_turn() as tool:
+        alternate = tool.format_strong("dngf_convergence_cpu", strong, 8, 2)
+    assert "22.85-98.00 mm, mean 38.62, median 26.22" in alternate
+    goal = convergence.format_strong("goal_convergence_cpu", strong, 8, 2)
+    assert "JAX trainer's own fits" not in goal

@@ -9,9 +9,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "tcnerf_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-# scripts/jax_run.py runs the JAX package; these drive the port alone
-PORT_SCRIPTS = [ROOT / "scripts" / name
-                for name in ("round_parity.py", "strong_alternate.py")]
+# the scripts, which drive the port alone
+PORT_SCRIPTS = sorted((ROOT / "scripts").glob("*.py"))
 BANNED = {"jax", "jaxlib", "flax", "optax", "msgpack", "tensorflow",
           "tcnerf"}
 
