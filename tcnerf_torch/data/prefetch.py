@@ -9,7 +9,10 @@ stream wait on that event before it hands the batch out, and marks the
 batch's tensors as used on its stream so that the caching allocator does not
 reuse them early. On the CPU the batches are the arrays themselves, as
 `generators.to_device` gives them. An exception raised in the producer is
-raised again in the consumer.
+raised again in the consumer. Spans (`utils/profiling.py`): each batch the
+producer makes is "tcnerf.feed.make" (in its thread, never a profiler
+range: it launches no work of the consumer's), and the consumer's wait for
+one "tcnerf.feed.wait".
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import span
 
 
 def _host(a) -> torch.Tensor:
@@ -54,19 +58,24 @@ def prefetch_to_device(batch_iter: Iterator, device: torch.device,
                 continue
         return False
 
+    def make(batch):
+        if not cuda:
+            return _map(_host, batch), None
+        with torch.cuda.stream(stream):
+            moved = _map(lambda a: _host(a).pin_memory().to(
+                device, non_blocking=True), batch)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return moved, event
+
     def producer():
         try:
-            for batch in batch_iter:
-                if not cuda:
-                    item = (_map(_host, batch), None)
-                else:
-                    with torch.cuda.stream(stream):
-                        moved = _map(lambda a: _host(a).pin_memory().to(
-                            device, non_blocking=True), batch)
-                        event = torch.cuda.Event()
-                        event.record(stream)
-                    item = (moved, event)
-                if not put(item):
+            batches = iter(batch_iter)
+            while True:
+                with span("tcnerf.feed.make", profile=False):
+                    batch = next(batches, sentinel)
+                    item = sentinel if batch is sentinel else make(batch)
+                if item is sentinel or not put(item):
                     return
         except Exception as e:          # raised again on the consumer side
             err.append(e)
@@ -77,16 +86,17 @@ def prefetch_to_device(batch_iter: Iterator, device: torch.device,
     thread.start()
     try:
         while True:
-            item = q.get()
-            if item is sentinel:
-                if err:
-                    raise err[0]
-                return
-            batch, event = item
-            if event is not None:
-                current = torch.cuda.current_stream(device)
-                current.wait_event(event)
-                _map(lambda t: t.record_stream(current), batch)
+            with span("tcnerf.feed.wait"):
+                item = q.get()
+                if item is sentinel:
+                    if err:
+                        raise err[0]
+                    return
+                batch, event = item
+                if event is not None:
+                    current = torch.cuda.current_stream(device)
+                    current.wait_event(event)
+                    _map(lambda t: t.record_stream(current), batch)
             yield batch
     finally:
         stop.set()

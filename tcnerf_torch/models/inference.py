@@ -3,9 +3,14 @@
 Features are encoded once, then the target view's rays run through a
 Python loop over ray chunks: on the fused swg path (the serving default on
 the card; always the bf16 stream) or on the flax-shaped `render_rays` path.
-Rays padding the last chunk get origin 0 and direction 1. The chunk loop
-is the profiler range "tcnerf.chunks" (the swg path's weight packing
-"tcnerf.swg_prepare"; the encoder's ranges are the renderer's).
+Rays padding the last chunk get origin 0 and direction 1. Spans
+(`utils/profiling.py`, ranges under the profiler): `render_view` is
+"tcnerf.view", its host inputs and uploads "tcnerf.view.inputs", the rays
+"tcnerf.view.rays", the chunk loop "tcnerf.chunks" (the swg path's weight
+packing "tcnerf.swg_prepare"; the encoder's spans are the renderer's), the
+chunks' assembly into the image "tcnerf.view.assemble" and its copy to the
+host "tcnerf.view.readback". The helpers `_ray_chunks` and `_assemble`,
+which the sharded render shares, carry no span of their own.
 """
 
 from __future__ import annotations
@@ -14,11 +19,11 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.rays import get_rays
 from ..data.generators import camera_parameters
 from ..device import resolve_device
+from ..utils.profiling import span
 from .fused import swg_prepare, swg_render_chunk
 
 Draws = Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -57,10 +62,11 @@ def render_all_rays(model, src_images, src_intrinsics, src_extrinsics_inv,
     """All target rays through `model.render_rays`, chunk by chunk.
     draws: optional per-chunk (u_coarse, u_fine). Returns float
     (fine_rgb [H, W, 3], fine_depth [H, W])."""
-    chunks_o, chunks_d, n = _ray_chunks(tgt_pose, tgt_intrinsics3, height,
-                                        width, chunk)
+    with span("tcnerf.view.rays"):
+        chunks_o, chunks_d, n = _ray_chunks(tgt_pose, tgt_intrinsics3,
+                                            height, width, chunk)
     rgbs, depths = [], []
-    with record_function("tcnerf.chunks"):
+    with span("tcnerf.chunks"):
         for i in range(chunks_o.shape[0]):
             u_c, u_f = draws[i] if draws is not None else (None, None)
             _, _, fine_rgb, fine_depth = model.render_rays(
@@ -69,7 +75,8 @@ def render_all_rays(model, src_images, src_intrinsics, src_extrinsics_inv,
                 u_fine=u_f, generator=generator)
             rgbs.append(fine_rgb[0])
             depths.append(fine_depth[0])
-    return _assemble(rgbs, depths, n, height, width)
+    with span("tcnerf.view.assemble"):
+        return _assemble(rgbs, depths, n, height, width)
 
 
 def render_all_rays_swg(model, src_images, src_intrinsics, src_extrinsics_inv,
@@ -79,13 +86,14 @@ def render_all_rays_swg(model, src_images, src_intrinsics, src_extrinsics_inv,
                         generator: Optional[torch.Generator] = None):
     """All target rays through the fused swg path (1 view), bf16 stream
     whatever the model dtype. Returns (fine_rgb, fine_depth, n_overflow=0)."""
-    chunks_o, chunks_d, n = _ray_chunks(tgt_pose, tgt_intrinsics3, height,
-                                        width, chunk)
-    with record_function("tcnerf.swg_prepare"):
+    with span("tcnerf.view.rays"):
+        chunks_o, chunks_d, n = _ray_chunks(tgt_pose, tgt_intrinsics3,
+                                            height, width, chunk)
+    with span("tcnerf.swg_prepare"):
         prepared = swg_prepare(model, src_images, combined_features,
                                n_blocks=model.n_blocks, dtype=torch.bfloat16)
     rgbs, depths = [], []
-    with record_function("tcnerf.chunks"):
+    with span("tcnerf.chunks"):
         for i in range(chunks_o.shape[0]):
             u_c, u_f = draws[i] if draws is not None else (None, None)
             _, _, fine_rgb, fine_depth, _ = swg_render_chunk(
@@ -95,7 +103,8 @@ def render_all_rays_swg(model, src_images, src_intrinsics, src_extrinsics_inv,
                 u_coarse=u_c, u_fine=u_f, generator=generator)
             rgbs.append(fine_rgb[0])
             depths.append(fine_depth[0])
-    return _assemble(rgbs, depths, n, height, width) + (0,)
+    with span("tcnerf.view.assemble"):
+        return _assemble(rgbs, depths, n, height, width) + (0,)
 
 
 def swg_default(model, n_views: int, device: torch.device) -> bool:
@@ -106,6 +115,7 @@ def swg_default(model, n_views: int, device: torch.device) -> bool:
             and device.type == "cuda")
 
 
+@span("tcnerf.view")
 def render_view(model, src_colors, src_camera_configs, tgt_camera_config,
                 generator: Optional[torch.Generator] = None,
                 chunk: Optional[int] = None, clip_outputs=None,
@@ -130,19 +140,21 @@ def render_view(model, src_colors, src_camera_configs, tgt_camera_config,
     if param.device.type != dev.type:
         raise ValueError(f"model is on {param.device}, render on {dev}")
     h, w = src_colors[0].shape[:2]
-    src = np.array([c[..., :3] / 255.0 for c in src_colors],
-                   dtype=np.float32)[None]                 # [1, V, H, W, 3]
-    cams = [camera_parameters(cfg) for cfg in src_camera_configs]
-    src_ext = torch.as_tensor(np.asarray([c[0] for c in cams], np.float32)[None],
-                              device=dev)
-    src_intr = torch.as_tensor(np.asarray([c[1] for c in cams], np.float32)[None],
-                               device=dev)
-    src_images = torch.as_tensor(src, device=dev)
+    with span("tcnerf.view.inputs"):
+        src = np.array([c[..., :3] / 255.0 for c in src_colors],
+                       dtype=np.float32)[None]             # [1, V, H, W, 3]
+        cams = [camera_parameters(cfg) for cfg in src_camera_configs]
+        src_ext = torch.as_tensor(
+            np.asarray([c[0] for c in cams], np.float32)[None], device=dev)
+        src_intr = torch.as_tensor(
+            np.asarray([c[1] for c in cams], np.float32)[None], device=dev)
+        src_images = torch.as_tensor(src, device=dev)
+        tgt_pose = torch.as_tensor(
+            np.asarray(tgt_camera_config["pose"], np.float32), device=dev)
+        tgt_intr3 = torch.as_tensor(np.reshape(
+            tgt_camera_config["intrinsics"], (3, 3)).astype(np.float32),
+            device=dev)
     v = src.shape[1]
-    tgt_pose = torch.as_tensor(np.asarray(tgt_camera_config["pose"], np.float32),
-                               device=dev)
-    tgt_intr3 = torch.as_tensor(np.reshape(
-        tgt_camera_config["intrinsics"], (3, 3)).astype(np.float32), device=dev)
     if use_swg and model.field == "hashgrid":
         raise ValueError("render_view: the swg path computes the pixel "
                          "field; a hash-grid model renders on the plain path")
@@ -160,11 +172,12 @@ def render_view(model, src_colors, src_camera_configs, tgt_camera_config,
         else:
             fine_rgb, fine_depth = render_all_rays(
                 *args, 512 if chunk is None else chunk, generator=generator)
-        rgb = np.clip(fine_rgb.float().cpu().numpy() * 255, 0, 255
-                      ).astype(np.uint8)
-        depth = fine_depth.float().cpu().numpy()[..., None]
-    denom = max(depth.max() - depth.min(), 1e-12)
-    depth_u8 = ((depth - depth.min()) / denom * 255).astype(np.uint8)
+        with span("tcnerf.view.readback"):
+            rgb = np.clip(fine_rgb.float().cpu().numpy() * 255, 0, 255
+                          ).astype(np.uint8)
+            depth = fine_depth.float().cpu().numpy()[..., None]
+            denom = max(depth.max() - depth.min(), 1e-12)
+            depth_u8 = ((depth - depth.min()) / denom * 255).astype(np.uint8)
     return rgb, depth_u8
 
 

@@ -11,10 +11,14 @@ poses with their scores.
     result.poses[0]  # best Affine
 
 Everything after the host inputs runs on the model's device, in full fp32
-(the pipeline pins it, as every entry point does). A pipeline is built from
-a model and a state_dict (for example `params.from_flax` of a flax tree,
-or None to keep the model's weights), or from checkpoint files either
-package wrote:
+(the pipeline pins it, as every entry point does). `infer` is the span
+"tcnerf.grasp" (`utils/profiling.py`), and its parts are spans under it:
+"tcnerf.grasp.encode", ".prepare", ".guesses", ".step" (each ascent step),
+".energies" (the final energies to the host) and ".topk".
+
+A pipeline is built from a model and a state_dict (for example
+`params.from_flax` of a flax tree, or None to keep the model's weights), or
+from checkpoint files either package wrote:
 
     pipe = GraspPipeline.from_checkpoints(model, "<grasp run>",
                                           workspace_bounds,
@@ -29,7 +33,6 @@ A demo on a synthetic scene (a tiny seeded `GraspEBM`, or its files from
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -39,6 +42,7 @@ import torch
 from ..device import resolve_device
 from ..opt.pose_optimizer import PoseOptimizer
 from ..tasks.transform import Affine
+from ..utils.profiling import span
 from . import checkpoint as ckpt
 from .grasp import GraspEBM
 
@@ -47,7 +51,7 @@ from .grasp import GraspEBM
 class GraspResult:
     poses: List[Affine]            # best first
     scores: List[float]
-    duration_s: float
+    duration_s: float              # host time of the whole `infer` call
     all_energies: np.ndarray       # [n_guesses]
 
 
@@ -108,6 +112,7 @@ class GraspPipeline:
                 init_lr_r=self.init_lr_r, decay_r=self.decay_r)
         return self._optimizer
 
+    @span("tcnerf.grasp.encode")
     def encode(self, images, text: Optional[str] = None) -> torch.Tensor:
         """[1, n_images, H, W, 3] floats in [0, 1] (and a prompt for the
         language variants) -> the feature image [1, n_images, H, W, C]."""
@@ -125,28 +130,34 @@ class GraspPipeline:
 
     def infer(self, images, intrinsics, extrinsics_inv,
               text: Optional[str] = None, rng=None) -> GraspResult:
-        """Encode, prepare the scene, generate guesses, ascend, top-k."""
-        opt = self._ensure_optimizer()
-        features = self.encode(images, text)
-        inputs = (np.asarray(images, np.float32),
-                  np.asarray(intrinsics, np.float32),
-                  np.asarray(extrinsics_inv, np.float32))
-        start = time.time()
-        scene = opt.prepare(inputs, features)
-        opt.reset_optimizer()
-        state = opt.init_state(opt.generate_initial_guesses(rng))
-        phases = ([(True, True)] if self.sync
-                  else [(True, False), (False, True)])
-        for phase in phases:
-            state, _ = opt.optimize_pose(state, scene, phase,
-                                         self.n_optimization_steps)
-        energies = opt.compute_current_grasp_success(
-            state, scene).cpu().numpy().squeeze()
-        duration = time.time() - start
-        order = np.argsort(energies)[::-1][:self.top_k]
-        return GraspResult(poses=opt.get_results(state, order),
-                           scores=[float(energies[int(i)]) for i in order],
-                           duration_s=duration, all_energies=energies)
+        """Encode, prepare the scene, generate guesses, ascend, top-k.
+        The result's `duration_s` is the host time of the whole call."""
+        with span("tcnerf.grasp") as whole:
+            opt = self._ensure_optimizer()
+            features = self.encode(images, text)
+            inputs = (np.asarray(images, np.float32),
+                      np.asarray(intrinsics, np.float32),
+                      np.asarray(extrinsics_inv, np.float32))
+            scene = opt.prepare(inputs, features)
+            with span("tcnerf.grasp.guesses"):
+                opt.reset_optimizer()
+                state = opt.init_state(opt.generate_initial_guesses(rng))
+            phases = ([(True, True)] if self.sync
+                      else [(True, False), (False, True)])
+            for phase in phases:
+                state, _ = opt.optimize_pose(state, scene, phase,
+                                             self.n_optimization_steps)
+            with span("tcnerf.grasp.energies"):
+                energies = opt.compute_current_grasp_success(
+                    state, scene).cpu().numpy().squeeze()
+            with span("tcnerf.grasp.topk"):
+                order = np.argsort(energies)[::-1][:self.top_k]
+                result = GraspResult(
+                    poses=opt.get_results(state, order),
+                    scores=[float(energies[int(i)]) for i in order],
+                    duration_s=0.0, all_energies=energies)
+        result.duration_s = whole.seconds
+        return result
 
 
 def _demo(model_dir: Optional[str] = None, device=None) -> GraspResult:

@@ -19,9 +19,10 @@ Sampling draws: `render_rays` takes the coarse jitter and the PDF uniforms
 as optional explicit tensors (`u_coarse` [B, R, S], `u_fine` [B, R, S]);
 otherwise it draws them from `generator`.
 
-`combine_features` names its parts for the profiler (`record_function`):
-"tcnerf.encode" (ViT/DPT + conv encoder), "tcnerf.clip" (preprocess and
-the CLIP tower), "tcnerf.combine" (the fusion, or the 2x upsample).
+`combine_features` names its parts as spans (`utils/profiling.py`, ranges
+under the profiler): "tcnerf.encode" (ViT/DPT + conv encoder),
+"tcnerf.clip" (preprocess and the CLIP tower), "tcnerf.combine" (the
+fusion, or the 2x upsample).
 
 `remat` checkpoints the two embeddings and `VisualFeatures` while autograd
 records (torch.utils.checkpoint): their activations are recomputed in the
@@ -35,7 +36,6 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..core import projection, render, sampling
@@ -50,6 +50,7 @@ from ..nn.vit import VisualFeatures
 from ..ops.interpolate import (bilinear_gather_corners,
                                gather_projection_features, make_corner_image)
 from ..ops.sortmerge import merge_sorted, sort_small
+from ..utils.profiling import span
 
 _DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -170,10 +171,10 @@ class MVNeRFRenderer(nn.Module):
             n = src_images_flat.shape[0]
             empty = src_images_flat.new_zeros((n, 1, 1, 0))
             return empty, src_images_flat.new_zeros(())
-        with record_function("tcnerf.encode"):
+        with span("tcnerf.encode"):
             vis = self.encode(src_images_flat)
         if self.fusion == "without":
-            with record_function("tcnerf.combine"):
+            with span("tcnerf.combine"):
                 n, h, w, _ = vis.shape
                 up = resize_bilinear(vis, (h * 2, w * 2))
             return up, torch.zeros((), dtype=up.dtype, device=up.device)
@@ -181,14 +182,14 @@ class MVNeRFRenderer(nn.Module):
             # the frozen tower without autograd: its parameters take no
             # update and its input is no parameter, so no gradient of the
             # step goes through it (the JAX optimizer's `set_to_zero`)
-            with record_function("tcnerf.clip"), torch.no_grad():
+            with span("tcnerf.clip"), torch.no_grad():
                 clip_outputs = self.clip_visual(
                     preprocess(src_images_flat, self.clip_image_size))
         if clip_textuals is None:
             clip_textuals = torch.ones(
                 (src_images_flat.shape[0], self.clip_embed_dim),
                 dtype=vis.dtype, device=vis.device)
-        with record_function("tcnerf.combine"):
+        with span("tcnerf.combine"):
             return self.combine_clip_visual(clip_outputs, vis, clip_textuals)
 
     # ----------------------------------------------------------- rendering

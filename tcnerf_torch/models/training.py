@@ -13,7 +13,9 @@ first update has learning rate 0; `NerfOptimizer` does the same.
 `nerf_train_step` draws every sample uniform up front and hands each ray
 chunk its slice, so a checkpointed chunk recomputes with the draws of its
 forward (a draw inside the chunk would give the recompute new samples and
-the gradient would be silently wrong).
+the gradient would be silently wrong). A step is the span
+"tcnerf.train.step" (`utils/profiling.py`), its parts "tcnerf.train.forward"
+(the draws and the loss), "tcnerf.train.backward" and "tcnerf.train.update".
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..opt.schedules import warmup_constant_schedule
+from ..utils.profiling import span
 
 FEATURE_COMPONENTS = ("visual_features",)
 FROZEN_COMPONENTS = ("clip_visual", "clip_textual")
@@ -164,6 +167,7 @@ def nerf_loss(model: nn.Module, inputs, labels: torch.Tensor,
     return total / n_chunks + aux
 
 
+@span("tcnerf.train.step")
 def nerf_train_step(state: TrainState, inputs, labels: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     ray_chunk: Optional[int] = None,
@@ -176,11 +180,14 @@ def nerf_train_step(state: TrainState, inputs, labels: torch.Tensor,
     or drawn from `generator`.
     Returns (state, {"loss": loss before the update, a device scalar})."""
     model = state.model
-    if draws is None:
-        b, r = inputs[0].shape[:2]
-        draws = draw_samples(model, b, r, generator, inputs[0].device)
-    state.optimizer.zero_grad()
-    loss = nerf_loss(model, inputs, labels, *draws, ray_chunk=ray_chunk)
-    loss.backward()
-    state.apply_gradients()
+    with span("tcnerf.train.forward"):
+        if draws is None:
+            b, r = inputs[0].shape[:2]
+            draws = draw_samples(model, b, r, generator, inputs[0].device)
+        state.optimizer.zero_grad()
+        loss = nerf_loss(model, inputs, labels, *draws, ray_chunk=ray_chunk)
+    with span("tcnerf.train.backward"):
+        loss.backward()
+    with span("tcnerf.train.update"):
+        state.apply_gradients()
     return state, {"loss": loss.detach()}

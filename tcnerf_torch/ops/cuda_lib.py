@@ -21,6 +21,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from ..utils.profiling import RECORDER, span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tcnerf_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -38,13 +40,15 @@ class KernelLib:
     """One CUDA source -> one shared library, plus its launch counts.
 
     `counts[name]` is raised by one in the Python wrapper each time it
-    launches kernel `name`, and nowhere else."""
+    launches kernel `name`, and nowhere else; the span recorder reads it as
+    the counters `kernels.<source stem>.<name>` (`utils/profiling.py`)."""
 
     def __init__(self, source: str, functions: Dict[str, List]):
         self.source = source
         self.functions = functions        # C symbol -> argtypes
         self.counts: collections.Counter = collections.Counter()
         self._lib: Optional[ctypes.CDLL] = None
+        RECORDER.read_counts(f"kernels.{Path(source).stem}", self.counts)
 
     def _digest(self) -> str:
         h = hashlib.sha1()
@@ -83,10 +87,14 @@ class KernelLib:
                                f"cudaError {err}")
 
 
+# host work only, and a first launch may build inside a measured range:
+# a span, never a profiler range
+@span("tcnerf.kernels.build", profile=False)
 def build_all(libs) -> Dict[str, str]:
     """Compile every lib not yet built, one nvcc process each, in parallel.
 
-    Returns {source: nvcc/ptxas output}. Raises if any compile fails."""
+    Returns {source: nvcc/ptxas output}. Raises if any compile fails.
+    Runs under the span `tcnerf.kernels.build`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for lib in libs:

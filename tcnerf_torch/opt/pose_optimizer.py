@@ -17,6 +17,8 @@ summed over it.
 
 The JAX package jits the whole ascent as one `lax.scan`; here it is a
 Python loop of steps over a scene prepared once (`GraspEBM.prepare`).
+`prepare` is the span "tcnerf.grasp.prepare" and each ascent step the span
+"tcnerf.grasp.step" (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from scipy.spatial.transform import Rotation
 from ..core import se3
 from ..models.grasp import GraspEBM, Prepared
 from ..tasks.transform import Affine
+from ..utils.profiling import span
 from .schedules import exponential_decay
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -191,6 +194,7 @@ class PoseOptimizer:
 
     # ------------------------------------------------------------ scenes
 
+    @span("tcnerf.grasp.prepare")
     def prepare(self, inputs, features) -> Scene:
         """inputs = (images [1, n_images, H, W, 3], intrinsics, extrinsics_inv
         [1, n_images, 4, 4]) and features [1, n_images, H, W, C] -> the
@@ -238,30 +242,31 @@ class PoseOptimizer:
         trace = []
         with frozen(self.model):
             for _ in range(int(n_steps)):
-                t = state.translations.detach().requires_grad_(train_t)
-                r = state.rotations.detach().requires_grad_(train_r)
-                with torch.enable_grad():
-                    energies = self._energies(t, r, scene)
-                    wanted = [x for x, on in ((t, train_t), (r, train_r))
-                              if on]
-                    grads = (torch.autograd.grad(-energies.sum(), wanted)
-                             if wanted else ())
-                trace.append(energies.detach())
-                grads = iter(grads)
-                t, r = t.detach(), r.detach()
-                opt_t, opt_r = state.opt_t, state.opt_r
-                if train_t:
-                    up, opt_t = adam_update(
-                        torch.clamp(next(grads), -1.0, 1.0), opt_t,
-                        self.schedules["t"](opt_t.count))
-                    t = t + up
-                if train_r:
-                    up, opt_r = adam_update(
-                        torch.clamp(next(grads), -1.0, 1.0), opt_r,
-                        self.schedules["r"](opt_r.count))
-                    r = r + up
-                t, r = self._post_process(t, r)
-                state = PoseState(t, r, opt_t, opt_r)
+                with span("tcnerf.grasp.step"):
+                    t = state.translations.detach().requires_grad_(train_t)
+                    r = state.rotations.detach().requires_grad_(train_r)
+                    with torch.enable_grad():
+                        energies = self._energies(t, r, scene)
+                        wanted = [x for x, on in ((t, train_t), (r, train_r))
+                                  if on]
+                        grads = (torch.autograd.grad(-energies.sum(), wanted)
+                                 if wanted else ())
+                    trace.append(energies.detach())
+                    grads = iter(grads)
+                    t, r = t.detach(), r.detach()
+                    opt_t, opt_r = state.opt_t, state.opt_r
+                    if train_t:
+                        up, opt_t = adam_update(
+                            torch.clamp(next(grads), -1.0, 1.0), opt_t,
+                            self.schedules["t"](opt_t.count))
+                        t = t + up
+                    if train_r:
+                        up, opt_r = adam_update(
+                            torch.clamp(next(grads), -1.0, 1.0), opt_r,
+                            self.schedules["r"](opt_r.count))
+                        r = r + up
+                    t, r = self._post_process(t, r)
+                    state = PoseState(t, r, opt_t, opt_r)
         return state, torch.stack(trace) if trace else None
 
     @torch.no_grad()

@@ -24,9 +24,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.profiler import record_function
 
 from ..models.inference import Draws, _assemble, _ray_chunks
+from ..utils.profiling import span
 from .distributed import all_gather_rows, check_spans_world
 
 
@@ -51,7 +51,7 @@ def render_image_sharded(mesh: DeviceMesh, model, src_images, src_intrinsics,
     first = dist.get_rank() * per_rank
     shape = (1, chunk, model.n_samples)
     rgbs, depths = [], []
-    with record_function("tcnerf.chunks"):
+    with span("tcnerf.chunks"):
         for i in range(chunks_o.shape[0]):
             if draws is not None:
                 u_c, u_f = draws[i]

@@ -32,6 +32,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from .utils.profiling import span
 
 # DenseGeneral modules that contract (heads, hd) into the output width
 _OUT_PROJECTIONS = ("attn_out", "out")
@@ -183,6 +184,7 @@ def _dense_init(p: torch.Tensor, kind: str, generator: torch.Generator):
         raise ValueError(f"kernel initializer {kind} not supported")
 
 
+@span("tcnerf.init_params")
 def init_params(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation with flax's default scales: weights normal with
     std 1/sqrt(fan_in) (lecun), except a `Dense` that names another flax
