@@ -78,6 +78,7 @@ Imports torch and the port only.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -115,11 +116,12 @@ def compare(name, got, want, tol, note):
 def phase_build():
     from tcnerf_torch.ops.cuda_lib import build_all
     from tcnerf_torch.ops.gather import GATHER
+    from tcnerf_torch.ops.probe import PROBE
     from tcnerf_torch.ops.resmlp import RESMLP
     from tcnerf_torch.ops.swg import SWG
 
     t0 = time.perf_counter()
-    reports = build_all([RESMLP, SWG, GATHER])
+    reports = build_all([RESMLP, SWG, GATHER, PROBE])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({len(reports)} nvcc processes in parallel)")
     for source, text in reports.items():
@@ -231,6 +233,8 @@ def phase_kernels(dev, card):
         plain_ms=time_ms(lambda: swg_field_plain(img, coords, None, None,
                                                  wts, 6, **kw), dev, 3),
         bound=bound_ms(flops, nbytes))
+    del img, coords, pos, dirs, got, want, h0
+    results.update(probe_kernels(dev, card))
     for k, r in results.items():
         coarse = (f", coarse stage {r['coarse_ms']:.4f} ms"
                   if "coarse_ms" in r else "")
@@ -238,6 +242,125 @@ def phase_kernels(dev, card):
               f" ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}) "
               f"[{card}]")
     return results
+
+
+def probe_setup(dev, guesses=4096, seed=0):
+    """goal_1_view's GraspEBM at its widths (seeded weights, and the biases
+    the probe kernels read drawn: the initializers leave them zero), its
+    validation optimizer with `guesses` initial guesses, 3 seeded 480x640
+    images and features on a camera ring, prepared, and the initial state:
+    (model, optimizer, scene, state)."""
+    import torch
+    from tcnerf_torch.opt.pose_optimizer import PoseOptimizer
+    from tcnerf_torch.train.config import load_config
+    from tcnerf_torch.train.grasp_common import build_grasp_model
+
+    cfg = load_config([], "goal_1_view")
+    model = build_grasp_model(cfg, device=dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for t in model.probe_weights().params():
+            if t.dim() == 1:
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.1)
+    oc = cfg.validation.grasp_opt_config
+    sc = oc.optimization_config
+    opt = PoseOptimizer(
+        model=model, workspace_bounds=cfg.generator_grasp.workspace_bounds,
+        n_initial_guesses=guesses, n_images=oc.optimizer_config.n_images,
+        clip_translation=oc.optimizer_config.clip_translation,
+        init_lr_t=sc.init_lr_t, decay_t=sc.decay_t, init_lr_r=sc.init_lr_r,
+        decay_r=sc.decay_r)
+    feats = torch.randn((1, opt.n_images, H, W, model.n_features),
+                        generator=gen, device=dev)
+    scene = opt.prepare(grasp_scene(opt.n_images, seed), feats)
+    return model, opt, scene, opt.init_state(
+        opt.generate_initial_guesses(seed))
+
+
+def probe_kernels(dev, card):
+    """P1 / P2, the probe chain's forward and backward kernels, at
+    goal_1_view's shape: the rows of 4096 guesses x 3 images x 42 probes
+    (516,096) of a synchronised step's poses, against
+    `GraspEBM.probe_chain_plain` and autograd through it on the same card,
+    forward and d(xy, pos, dir) of a seeded d(out) within 1e-5 of the
+    largest |plain|. Timed with CUDA events: the forward keeping nothing
+    (the final energies) and keeping the masks (a step), the backward, the
+    plain forward, and autograd's backward through it (plain forward and
+    backward less the plain forward). The plain path is the library route
+    (cuBLAS GEMMs and PyTorch's element-wise kernels). Bound: the f32
+    multiply-adds at the FFMA peak (the configuration runs no TF32) or the
+    bytes (2 KB of corner rows a row), whichever is larger."""
+    import torch
+    from tcnerf_torch.core import se3
+    from tcnerf_torch.ops.probe import DOWNSCALE, HIDDEN, probe_chain, \
+        probe_taps
+    from tcnerf_torch.opt.pose_optimizer import frozen
+    from tcnerf_torch.tools.common import PEAK_F32_FLOPS, bound_ms, time_ms
+
+    model, opt, scene, state = probe_setup(dev)
+    b = opt.batch_size
+    poses = se3.pose_to_matrix(state.translations.expand(b, -1, -1),
+                               state.rotations.expand(b, -1, -1))
+    _, pixel_xy, cam, dirs = model.probe_inputs(poses, scene.intrinsics,
+                                                scene.extrinsics_inv)
+    rows = [x.reshape(-1, x.shape[-1]).contiguous().detach()
+            for x in (pixel_xy, cam, dirs)]
+    n, rpi = rows[0].shape[0], opt.n_initial_guesses * model.n_probes
+    corner, pack = scene.prepared.corner, model._probe_pack()
+    gout = torch.randn((n, DOWNSCALE), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    pd = model.fine_embedding.layer_0.split
+    row_flops = 2.0 * (pd * HIDDEN + 2 * model.n_blocks * HIDDEN * HIDDEN
+                       + probe_taps(model.n_blocks)[1]
+                       * (HIDDEN * DOWNSCALE + DOWNSCALE * DOWNSCALE))
+    bound = bound_ms(row_flops * n, n * (4 * HIDDEN * 4 + 8 * 4
+                                         + DOWNSCALE * 4), PEAK_F32_FLOPS)
+    print(f"probe chain: {n} rows ({opt.n_initial_guesses} guesses x "
+          f"{opt.n_images} images x {model.n_probes} probes), "
+          f"{row_flops:.0f} FLOP a row each way; bound {bound[0]:.4f} ms by "
+          f"{bound[1]} (f32 FFMA at {PEAK_F32_FLOPS / 1e12:.0f} TF/s)")
+    res = {}
+    with frozen(model):
+        ins = [x.clone().requires_grad_() for x in rows]
+        out = probe_chain(*ins, corner, rpi, pack)
+        g_k = torch.autograd.grad(out, ins, gout, retain_graph=True)
+        want = model.probe_chain_plain(*ins, corner, rpi)
+        g_p = torch.autograd.grad(want, ins, gout)
+        err = compare(f"P1 probe_fwd [{n} rows] f32", out, want, 1e-5,
+                      "f32 FFMA, products in k order as cuBLAS's SIMT GEMMs")
+        errs = [compare(f"P2 probe_bwd d({name}) [{n} rows] f32", g, w, 1e-5,
+                        "f32, another summation order than autograd's")
+                for name, g, w in zip(("xy", "pos", "dir"), g_k, g_p)]
+        del want, g_p
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: probe_chain(*rows, corner, rpi, pack),
+                             dev, 10)
+            plain_ms = time_ms(lambda: model.probe_chain_plain(
+                *rows, corner, rpi), dev, 5)
+        keep_ms = time_ms(lambda: probe_chain(*ins, corner, rpi, pack), dev,
+                          10)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out, ins, gout, retain_graph=True), dev, 10)
+        del out
+
+        def plain_both():
+            o = model.probe_chain_plain(*ins, corner, rpi)
+            return torch.autograd.grad(o, ins, gout)
+        both_ms = time_ms(plain_both, dev, 5)
+    res["P1"] = dict(err=err, ms=fwd_ms, keep_ms=keep_ms, plain_ms=plain_ms,
+                     library_ms=plain_ms, bound=bound)
+    res["P2"] = dict(err=max(errs), ms=bwd_ms, plain_ms=both_ms - plain_ms,
+                     library_ms=both_ms - plain_ms, bound=bound)
+    print(f"time P1 probe_fwd: {fwd_ms:.4f} ms, keeping the masks "
+          f"{keep_ms:.4f} ms; P2 probe_bwd: {bwd_ms:.4f} ms; plain forward "
+          f"{plain_ms:.4f} ms, plain forward and backward {both_ms:.4f} ms; "
+          f"{row_flops * n / fwd_ms / 1e9:.1f} / "
+          f"{row_flops * n / bwd_ms / 1e9:.1f} TF/s, "
+          f"{100 * bound[0] / fwd_ms:.1f}% / {100 * bound[0] / bwd_ms:.1f}% "
+          f"of the bound [{card}]")
+    del model, opt, scene, state, rows, ins, corner, pack
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_gather(dev, card, launches):
@@ -352,18 +475,39 @@ def build_model(dev, dtype=None, pallas_mlp=False, fusion="without",
 
 def reset_counts():
     from tcnerf_torch.ops.gather import GATHER
+    from tcnerf_torch.ops.probe import PROBE
     from tcnerf_torch.ops.resmlp import RESMLP
     from tcnerf_torch.ops.swg import SWG
     RESMLP.counts.clear()
     SWG.counts.clear()
     GATHER.counts.clear()
+    PROBE.counts.clear()
 
 
 def read_counts():
     from tcnerf_torch.ops.gather import GATHER
+    from tcnerf_torch.ops.probe import PROBE
     from tcnerf_torch.ops.resmlp import RESMLP
     from tcnerf_torch.ops.swg import SWG
-    return {**RESMLP.counts, **SWG.counts, **GATHER.counts}
+    return {**RESMLP.counts, **SWG.counts, **GATHER.counts, **PROBE.counts}
+
+
+@contextlib.contextmanager
+def plain_probe(model):
+    """`energy_prepared` of `model` on its plain path whatever it is given:
+    the probe kernels' reference on the same card."""
+    model.probe_kernel_engages = lambda poses, prepared: False
+    try:
+        yield
+    finally:
+        del model.probe_kernel_engages
+
+
+def probe_engages(model) -> bool:
+    """Whether the grasp path of `model` (f32 on the card) is to launch
+    the probe kernels: the corner image, one view, no hash-grid stream."""
+    return (model.corner_gather and model.n_views == 1
+            and model.hash_cfg is None)
 
 
 def timed(fn):
@@ -1442,7 +1586,10 @@ def grasp_energy_grads(model, opt, scene, features, guesses, take=None):
 
 def check_grasp_on_cpu(opt, scene, features, tag, n=64):
     """`n` seeded guesses on the card against the same model on the CPU,
-    from the card's features, each error against max |cpu|.
+    from the card's features, each error against max |cpu|. The card runs
+    the plain path (`plain_probe`) there, and its grasp path (the probe
+    kernels, where they engage) is held against that: energies within
+    1e-4, gradients within 1e-3.
 
     The f32 energies within 1e-3. The f32 d(sum E)/d(t, r) within 1e-3,
     against the CPU run made to take the card's relu branches, for every
@@ -1460,7 +1607,8 @@ def check_grasp_on_cpu(opt, scene, features, tag, n=64):
     model = opt.model
     guesses = opt.generate_initial_guesses(5, n)
     cpu = copy.deepcopy(model).cpu()
-    got = grasp_energy_grads(model, opt, scene, features, guesses)
+    with plain_probe(model):
+        got = grasp_energy_grads(model, opt, scene, features, guesses)
     own = grasp_energy_grads(cpu, opt, scene, features, guesses)
     want = grasp_energy_grads(cpu, opt, scene, features, guesses,
                               take=got["sides"])
@@ -1496,6 +1644,13 @@ def check_grasp_on_cpu(opt, scene, features, tag, n=64):
             raise AssertionError(f"grasp {tag} f32 dE/d{what[1]}: card and "
                                  "CPU disagree")
     del cpu
+    kern = grasp_energy_grads(model, opt, scene, features, guesses)
+    for what, label, tol in (("e", "energies", 1e-4), ("dt", "dE/dt", 1e-3),
+                             ("dr", "dE/dr", 1e-3)):
+        compare(f"grasp {tag} f32 {label} of {n} guesses, the grasp path "
+                f"vs the plain path on the card", kern[what], got[what], tol,
+                "the probe kernels where they engage; f32 roundings can "
+                "put a relu input on the other side of 0")
     runs = [grasp_energy_grads(m, opt, scene, features, guesses)
             for m in (copy.deepcopy(model).double(),
                       copy.deepcopy(model).cpu().double())]
@@ -1507,7 +1662,7 @@ def check_grasp_on_cpu(opt, scene, features, tag, n=64):
 
 
 def phase_grasp(dev, card, name="goal_1_view", text=None, fusion=None,
-                sync=True, model_dir=None, trained=None):
+                sync=True, model_dir=None, trained=None, launches=None):
     """`GraspPipeline.infer` on `name` at full width (ViT-B/16 224^2,
     n_features 256, hidden 128, 6 blocks, 480x640; 7 5-d poses = 42
     probes; the language config adds the CLIP RN50 and text towers and the
@@ -1517,9 +1672,14 @@ def phase_grasp(dev, card, name="goal_1_view", text=None, fusion=None,
     generator_grasp/default workspace), synchronized or alternating.
     Checks: finite energies; the returned top-k scores equal a fresh
     `energy` of the returned poses; 64 guesses' energies and pose
-    gradients on the card against the CPU. Prints the encode ms, the ms
-    per ascent step, the infer wall, guesses x steps / s, the peak memory
-    and one profiled ascent step. With `model_dir` the pipeline is
+    gradients on the card against the CPU; the measured infer's probe
+    kernel launches (P1 a forward for each step and the final energies, P2
+    a backward for each step, where `probe_engages`; else none), recorded
+    in `launches` under "P1" / "P2" (goal_1_view) or "P1 <name>". Prints
+    the encode ms, the ms per ascent step and of the final energies, both
+    beside the plain path's (`plain_probe`), the infer wall, guesses x
+    steps / s, the peak memory and one profiled ascent step. With
+    `model_dir` the pipeline is
     `GraspPipeline.from_checkpoints` of that grasp run's `model_final` on
     a seeded model, whose grasp components must then equal `trained` (a
     state dict) bit for bit."""
@@ -1570,8 +1730,24 @@ def phase_grasp(dev, card, name="goal_1_view", text=None, fusion=None,
           + (f", prompt {text!r}" if text else "") + "; seeded weights")
     _, t_first = timed(lambda: pipe.infer(*scene, text=text, rng=0))
     torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
     result, t_infer = timed(lambda: pipe.infer(*scene, text=text, rng=0))
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    got = (counts.get("probe_fwd", 0), counts.get("probe_bwd", 0))
+    engages = probe_engages(model)
+    want = (n_steps + 1, n_steps) if engages else (0, 0)
+    why = ("the corner image, one view, no hash-grid stream" if engages
+           else "the plain path")
+    print(f"check grasp {name} probe kernel launches in one infer: P1 "
+          f"{got[0]}, P2 {got[1]} (want {want[0]}, {want[1]}: {why}) "
+          f"{'OK' if got == want else 'FAIL'}")
+    if got != want:
+        raise AssertionError(f"grasp {name}: probe kernel launches {got}, "
+                             f"not {want}")
+    if launches is not None:
+        suffix = "" if name == "goal_1_view" else f" {name}"
+        launches[f"P1{suffix}"], launches[f"P2{suffix}"] = got
     energies = result.all_energies
     if energies.shape != (n,) or not np.isfinite(energies).all():
         raise AssertionError(f"grasp {name}: energies {energies.shape} not "
@@ -1591,6 +1767,14 @@ def phase_grasp(dev, card, name="goal_1_view", text=None, fusion=None,
     step_ms = {names[ph]: time_ms(
         lambda ph=ph: opt.optimize_pose(state, sc, ph, 1), dev, 5)
         for ph in phases}
+    final_ms = time_ms(lambda: opt.compute_current_grasp_success(state, sc),
+                       dev, 5)
+    with plain_probe(model):
+        plain_step_ms = {names[ph]: time_ms(
+            lambda ph=ph: opt.optimize_pose(state, sc, ph, 1), dev, 3)
+            for ph in phases}
+        plain_final_ms = time_ms(
+            lambda: opt.compute_current_grasp_success(state, sc), dev, 3)
     ascent_ms = time_ms(lambda: [opt.optimize_pose(state, sc, ph, steps)
                                  for ph in phases], dev, 1)
     print(f"grasp {name} infer: {t_infer * 1e3:.1f} ms wall (first call "
@@ -1600,7 +1784,11 @@ def phase_grasp(dev, card, name="goal_1_view", text=None, fusion=None,
                                       for k, v in step_ms.items())
           + f" (CUDA events, {n} guesses x "
           f"{opt_cfg.n_images} images x {model.n_probes} probes = "
-          f"{n * opt_cfg.n_images * model.n_probes} probe rows); "
+          f"{n * opt_cfg.n_images * model.n_probes} probe rows; the plain "
+          f"path's " + ", ".join(f"({k}) {v:.2f} ms"
+                                 for k, v in plain_step_ms.items())
+          + f"); final energies {final_ms:.2f} ms (the plain path's "
+          f"{plain_final_ms:.2f} ms); "
           f"{n_steps} steps as infer runs them {ascent_ms:.1f} ms = "
           f"{n * n_steps / (ascent_ms / 1e3):.0f} guesses x steps / s; peak "
           f"memory allocated {peak / 2 ** 30:.2f} GiB; top scores "
@@ -1633,12 +1821,13 @@ def phase_grasp(dev, card, name="goal_1_view", text=None, fusion=None,
     return dict(infer_ms=t_infer * 1e3, step_ms=step_ms, encode_ms=enc_ms)
 
 
-def phase_grasp_language(dev, card):
+def phase_grasp_language(dev, card, launches=None):
     """phase_grasp on language_1_view: fusion v4 (dense text gate, elu),
     6d rotations, the dngf readout with bias, the prompt through the port's
     tokenizer and the CLIP text tower, alternating t / r phases."""
     return phase_grasp(dev, card, "language_1_view",
-                       text="grasp the red ball", fusion="v4", sync=False)
+                       text="grasp the red ball", fusion="v4", sync=False,
+                       launches=launches)
 
 
 # (config, trainer module, its run function, fusion, dataset kind); the
@@ -1896,6 +2085,50 @@ def run_grasp_trainer(dev, card, name, module, fn, fusion, cfg, cut,
     return run_, counts, batch
 
 
+def check_trained_probe(model, cfg, counts, name, dev, card):
+    """A grasp trainer's run launches the probe kernels in its validation
+    ascents where `probe_engages` (its steps never: their weights take
+    gradients), and none elsewhere. After the run's in-place updates, the
+    final energies of 256 seeded guesses in a seeded scene through the
+    kernels equal the plain path's within 1e-4 of the largest |plain|: the
+    kernels' packed weights followed the updates."""
+    import torch
+    from tcnerf_torch.ops.probe import PROBE
+    from tcnerf_torch.train.grasp_common import build_pose_optimizer
+
+    fwd, bwd = counts.get("probe_fwd", 0), counts.get("probe_bwd", 0)
+    engages = probe_engages(model)
+    ok = fwd > 0 and bwd > 0 if engages else fwd == bwd == 0
+    print(f"check grasp train {name} probe kernel launches over the run: "
+          f"P1 {fwd}, P2 {bwd} (want "
+          f"{'some, in the validation ascents' if engages else 'none'}) "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"grasp train {name}: probe launches "
+                             f"{(fwd, bwd)}")
+    if not engages:
+        return
+    opt = build_pose_optimizer(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    feats = torch.randn((1, opt.n_images, H, W, model.n_features),
+                        generator=gen, device=dev)
+    scene = opt.prepare(grasp_scene(opt.n_images, seed=4), feats)
+    state = opt.init_state(opt.generate_initial_guesses(4, 256))
+    before = PROBE.counts["probe_fwd"]
+    got = opt.compute_current_grasp_success(state, scene)
+    if PROBE.counts["probe_fwd"] != before + 1:
+        raise AssertionError(f"grasp train {name}: the trained model's "
+                             "energies did not launch the probe kernel")
+    with plain_probe(model):
+        want = opt.compute_current_grasp_success(state, scene)
+    compare(f"grasp train {name} final energies of 256 guesses after the "
+            f"run's updates, probe kernels vs the plain path", got, want,
+            1e-4, f"the trained weights, packed again after each update "
+            f"[{card}]")
+    del opt, scene, feats
+    torch.cuda.empty_cache()
+
+
 def phase_grasp_train(dev, card, launches, root):
     """The four grasp trainers through their entry functions
     (`tcnerf_torch.train.train_goal`, `train_delta_ngf`, `train_trajectory`,
@@ -1905,8 +2138,9 @@ def phase_grasp_train(dev, card, launches, root):
     batch 8, seeded weights, on synthetic datasets (one per kind, shared by
     the trainers that read it), cut to GRASP_TRAIN_CUT (2 steps, a
     validation after each, and the warm-up) and for language_1_view to 5
-    perspectives. Per trainer the checks of `run_grasp_trainer` and no
-    chain-kernel launch (K1, K1', K2, K3 count 0). A profiled
+    perspectives. Per trainer the checks of `run_grasp_trainer`, no
+    chain-kernel launch (K1, K1', K2, K3 count 0) and those of
+    `check_trained_probe` (the validations' probe kernels). A profiled
     step of goal_1_view and of language_1_view; then one step of each kind
     on the card against the CPU
     (`check_grasp_train_on_cpu`). The trainers' checkpoints go under
@@ -1926,6 +2160,7 @@ def phase_grasp_train(dev, card, launches, root):
             name)
         run_, counts, (inputs, labels) = run_grasp_trainer(
             dev, card, name, module, fn, fusion, cfg, cut)
+        check_trained_probe(run_.state.model, cfg, counts, name, dev, card)
         for k, key in CHAIN_COUNTS.items():
             totals[k] += counts.get(key, 0)
         if name in ("goal_1_view", "language_1_view"):
@@ -3518,6 +3753,15 @@ KERNELS = {
     "K3": dict(name="swg_gather_mlp", source="tcnerf_torch/csrc/swg.cu",
                replaces="tcnerf/ops/pallas/swg.py:362",
                mode="head given, f32 stream, fine stage 1048576 queries"),
+    "P1": dict(name="probe_fwd_kernel", source="tcnerf_torch/csrc/probe.cu",
+               replaces="none: the port's own (the energy's probe rows, which "
+                        "the JAX package leaves to XLA)",
+               mode="tap, encoding, chain and per-probe readout, f32 FFMA, "
+                    "goal_1_view 516096 rows"),
+    "P2": dict(name="probe_bwd_kernel", source="tcnerf_torch/csrc/probe.cu",
+               replaces="none: the port's own (as P1)",
+               mode="d(xy, position, direction) from d(out), f32 FFMA, "
+                    "goal_1_view 516096 rows"),
     "K1'": dict(name="resmlp_rows_diff", source="tcnerf_torch/csrc/resmlp.cu",
                 replaces="tcnerf/ops/pallas/resmlp.py:180",
                 mode="training: K1 forward (f32 stream, f32 in/out, bf16 "
@@ -3573,8 +3817,8 @@ def main(argv) -> int:
         fused_final = timed_stores(
             lambda: phase_train_fused(dev, card, launches, root),
             "phase_train_fused", card)
-        phase_grasp(dev, card)
-        phase_grasp_language(dev, card)
+        phase_grasp(dev, card, launches=launches)
+        phase_grasp_language(dev, card, launches)
         timed_stores(lambda: phase_grasp_train(dev, card, launches, root),
                      "phase_grasp_train", card)
         timed_stores(lambda: phase_checkpoint(dev, card, launches, root,
@@ -3612,7 +3856,7 @@ def main(argv) -> int:
                      "library_ms": r.get("library_ms"),
                      **{key: r[key] for key in ("coarse_ms", "backward_ms",
                                                 "coarse_backward_ms",
-                                                "executed_flops")
+                                                "executed_flops", "keep_ms")
                         if key in r}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -47,8 +47,10 @@ def make_homogeneous(translations: torch.Tensor,
                      rot_matrices: torch.Tensor) -> torch.Tensor:
     """(..., 3) translations and (..., 3, 3) rotations -> (..., 4, 4)."""
     top = torch.cat([rot_matrices, translations[..., :, None]], dim=-1)
-    last = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                        device=top.device).expand(top.shape[:-2] + (1, 4))
+    # made where `top` lives: a tensor from a host list would be a copy
+    # from pageable memory, which waits for the card
+    last = torch.zeros_like(top[..., :1, :])
+    last[..., 3] = 1.0
     return torch.cat([top, last], dim=-2)
 
 

@@ -14,9 +14,22 @@ the ascent loop. Here it is explicit: `prepare` builds, once per scene, the
 normalized images with the features and, under `corner_gather`, the corner
 image of layer_0's feature slice ([B * V, H, W, 4 * hidden] f32, ~1.9 GB
 for three 480x640 views); `energy_prepared` takes it. `energy` is the two
-in a row, the JAX function. The model reaches no custom kernel: the grasp
-readout needs every activation of the chain (`complete_output`), which the
-fused chain kernel does not emit, in the JAX package as here.
+in a row, the JAX function.
+
+On the card, `energy_prepared` runs the per-probe rows through the probe
+chain kernel pair (`ops/probe.py`, `csrc/probe.cu`: the corner tap, the
+encoding, the chain and the readout's per-probe part in one forward
+kernel, and a backward kernel for d(pose) alone) when all of these hold
+(`probe_kernel_engages`): the poses are CUDA float32, the scene has its
+corner image (`corner_gather`), one view (`n_views == 1`: the kernel does
+not split at the view mean), no hash-grid stream, the layers it reads are
+f32 shapes it computes (`_probe_pack`), and neither those weights nor the
+corner image would take a gradient (grad mode off, or none of them
+requires grad: the pose ascent freezes the weights). So the ascent, the
+final energies and the grasp trainers' validation ascents take the
+kernels; every other call, the trainers' steps among them, takes the
+plain path below, unchanged. `probe_chain_plain` is the kernels' plain
+version.
 
 `hash_encoding` adds the hash-grid stream: a top-level parameter
 `hash_tables` [hash_levels, 2^hash_size_log2, hash_features] over
@@ -46,6 +59,8 @@ from ..nn.vit import VisualFeatures
 from ..ops.hashgrid import HashGridConfig, hash_encode
 from ..ops.interpolate import (bilinear_gather, bilinear_gather_corners,
                                make_corner_image)
+from ..ops.probe import (ProbeWeights, pack_probe, probe_chain,
+                         probe_fits, probe_grad_free, tap_slice)
 from ..tasks.transform import Affine
 
 
@@ -243,25 +258,105 @@ class GraspEBM(nn.Module):
         corner = make_corner_image(self.fine_embedding.project_image(combined))
         return Prepared(b, v, None, corner)
 
-    def energy_prepared(self, poses: torch.Tensor, prepared: Prepared,
-                        src_intrinsics: torch.Tensor,
-                        src_extrinsics_inv: torch.Tensor) -> torch.Tensor:
-        """Energies [B, N] of poses [B, N, 4, 4] in a `prepare`d scene."""
+    def probe_weights(self) -> Optional[ProbeWeights]:
+        """The layers the probe kernels read, or None where the model is
+        not one they compute: more than one view, a hash-grid stream, raw
+        directions, a readout with an extra stream, a readout activation
+        other than relu or elu, a layer without bias or with a compute
+        dtype other than f32."""
+        emb, ro = self.fine_embedding, self.grasp_readout
+        if (self.n_views != 1 or self.hash_cfg is not None
+                or not emb.embed_direction_vector or ro.extra_features
+                or ro.activation not in ("relu", "elu")
+                or emb.layer_0.split != 12 * emb.n_freq):
+            return None
+        chain = [layer for blk in (*emb.feature_blocks, *emb.fusion_blocks)
+                 for layer in (blk.layer_0, blk.layer_1)]
+        downscales = [getattr(ro, f"activation_downscale_{j + 1}")
+                      for j in range(ro.n_activations)]
+        mods = [emb.layer_0, *chain, *downscales,
+                ro.combined_activation_downscale]
+        if any(m.bias is None or m.dtype not in (None, torch.float32)
+               for m in mods):
+            return None
+        pair = [(m.weight, m.bias) for m in mods]
+        return ProbeWeights(pair[0], pair[1:1 + len(chain)],
+                            pair[1 + len(chain):-1], pair[-1], emb.n_freq,
+                            emb.pos_encoding_freq, ro.activation == "elu")
+
+    def _probe_pack(self):
+        """`pack_probe` of `probe_weights`, or None where the kernels do not
+        compute the model; packed again only when a weight they read is
+        replaced or changed in place."""
+        w = self.probe_weights()
+        key = None if w is None else tuple((t.data_ptr(), t._version)
+                                           for t in w.params())
+        if getattr(self, "_probe_key", ()) != key:
+            self._probe_packed = (pack_probe(w) if key and probe_fits(w)
+                                  else None)
+            self._probe_key = key
+        return self._probe_packed
+
+    def probe_kernel_engages(self, poses: torch.Tensor,
+                             prepared: Prepared) -> bool:
+        """Whether `energy_prepared` takes the probe chain kernels (the
+        module's docstring lists the conditions)."""
+        corner = prepared.corner
+        if not (poses.is_cuda and poses.dtype == torch.float32
+                and corner is not None and corner.dtype == torch.float32):
+            return False
+        pack = self._probe_pack()
+        return pack is not None and probe_grad_free(pack, corner)
+
+    def probe_chain_plain(self, coords: torch.Tensor, pos: torch.Tensor,
+                          dirs: torch.Tensor, corner: torch.Tensor,
+                          rows_per_image: int) -> torch.Tensor:
+        """What the probe kernels compute, in plain PyTorch as the plain
+        path computes it: coords [R, 2], pos and dirs [R, 3], corner [I, H,
+        W, 4 * hidden] with I * rows_per_image == R -> [R, 64]."""
+        rows = coords.shape[0]
+        feats = bilinear_gather_corners(
+            corner, coords.reshape(rows // rows_per_image, rows_per_image, 2))
+        acts = self.fine_embedding(pos, dirs, feats.reshape(rows, -1),
+                                   features_projected=True)
+        return self.grasp_readout.probe_features(
+            acts[tap_slice(self.n_blocks)])
+
+    def probe_inputs(self, poses: torch.Tensor, src_intrinsics: torch.Tensor,
+                     src_extrinsics_inv: torch.Tensor):
+        """The probes of poses [B, N, 4, 4]: world translations [B, N, P, 3],
+        and in each view pixel xy [B, V, N, P, 2], camera-frame positions
+        and directions [B, V, N, P, 3]."""
         probe_poses = torch.einsum("bnij,pjk->bnpik", poses,
                                    self.probes.to(poses.dtype))
         translations = probe_poses[..., :3, 3]
         pixel_xy, cam_points = projection.project_probe_points(
             translations, src_intrinsics, src_extrinsics_inv)
+        dirs = projection.rotate_directions(
+            probe_poses[..., :3, :3], self.z_dir.to(poses.dtype),
+            src_extrinsics_inv)
+        return translations, pixel_xy, cam_points, dirs
+
+    def energy_prepared(self, poses: torch.Tensor, prepared: Prepared,
+                        src_intrinsics: torch.Tensor,
+                        src_extrinsics_inv: torch.Tensor) -> torch.Tensor:
+        """Energies [B, N] of poses [B, N, 4, 4] in a `prepare`d scene."""
+        translations, pixel_xy, cam_points, dirs = self.probe_inputs(
+            poses, src_intrinsics, src_extrinsics_inv)
         b, v = prepared.batch, prepared.views
         n, p = poses.shape[1], self.n_probes
+        if self.probe_kernel_engages(poses, prepared):
+            combined = probe_chain(
+                pixel_xy.reshape(-1, 2),
+                cam_points.reshape(-1, 3).contiguous(),
+                dirs.reshape(-1, 3).contiguous(), prepared.corner, n * p,
+                self._probe_packed)
+            return self.grasp_readout.pose_energies(combined.reshape(b, n, -1))
         coords = pixel_xy.reshape(b * v, n * p, 2)
         if prepared.corner is not None:
             feats = bilinear_gather_corners(prepared.corner, coords)
         else:
             feats = bilinear_gather(prepared.combined, coords)
-        dirs = projection.rotate_directions(
-            probe_poses[..., :3, :3], self.z_dir.to(poses.dtype),
-            src_extrinsics_inv)
         activations = self.fine_embedding(
             cam_points.reshape(b * v, n, p, 3), dirs.reshape(b * v, n, p, 3),
             feats.reshape(b * v, n, p, feats.shape[-1]),
@@ -272,7 +367,7 @@ class GraspEBM(nn.Module):
             # activations (leading axis B) are
             extra = hash_encode(self.hash_tables, translations,
                                 self.hash_cfg).to(activations[-1].dtype)
-        return self.grasp_readout(activations[self.n_blocks // 2 + 1:],
+        return self.grasp_readout(activations[tap_slice(self.n_blocks)],
                                   extra)
 
     def energy(self, poses, src_images, src_intrinsics, src_extrinsics_inv,

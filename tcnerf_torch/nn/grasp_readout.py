@@ -56,6 +56,14 @@ class GraspReadout(nn.Module):
                 extra: Optional[torch.Tensor] = None) -> torch.Tensor:
         """activations: each [B, N, P, H], extra [B, N, P, extra_features]
         (when the readout was built with the stream) -> energies [B, N]."""
+        combined = self.probe_features(activations, extra)
+        return self.pose_energies(
+            combined.reshape(combined.shape[:-2] + (-1,)))
+
+    def probe_features(self, activations: Sequence[torch.Tensor],
+                       extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The per-probe part: the downscales, their activation, the
+        combined Dense(64) and the activation -> [..., P, 64]."""
         if (extra is not None) != bool(self.extra_features):
             raise ValueError(f"the readout was built with extra_features="
                              f"{self.extra_features}; extra is "
@@ -65,8 +73,9 @@ class GraspReadout(nn.Module):
               for i, a in enumerate(activations[:self.n_activations])]
         if extra is not None:
             ds.append(act(self.activation_downscale_extra(extra)))
-        combined = act(self.combined_activation_downscale(
-            torch.cat(ds, dim=-1)))
-        combined = combined.reshape(combined.shape[:-2] + (-1,))
+        return act(self.combined_activation_downscale(torch.cat(ds, dim=-1)))
+
+    def pose_energies(self, combined: torch.Tensor) -> torch.Tensor:
+        """The per-pose part: [B, N, P * 64] -> energies [B, N]."""
         x = self.readout_block_1(self.readout_block_0(combined))
         return self.readout_head(x)[..., 0]

@@ -125,6 +125,7 @@ class PoseOptimizer:
     init_lr_r: Optional[float] = None
     decay_r: Optional[float] = None
     schedules: dict = field(default=None, init=False, repr=False)
+    _bounds: dict = field(default_factory=dict, init=False, repr=False)
 
     def __post_init__(self):
         if self.n_images % self.n_views:
@@ -219,11 +220,19 @@ class PoseOptimizer:
             self.rotation_representation)
         return energies.sum(dim=0)
 
+    def _bounds_on(self, device, dtype) -> torch.Tensor:
+        """The workspace bounds on `device`, copied once: a copy from
+        pageable host memory at every step would wait for the card."""
+        key = (device, dtype)
+        if key not in self._bounds:
+            self._bounds[key] = torch.as_tensor(self.workspace_bounds,
+                                                dtype=dtype, device=device)
+        return self._bounds[key]
+
     def _post_process(self, t, r):
         """Renormalize the rotations, clip the translations."""
         if self.clip_translation:
-            b = torch.as_tensor(self.workspace_bounds, dtype=t.dtype,
-                                device=t.device)
+            b = self._bounds_on(t.device, t.dtype)
             t = torch.minimum(torch.maximum(t, b[:, 0]), b[:, 1])
         if self.rotation_representation == "quaternion":
             r = se3._normalize(r)

@@ -16,6 +16,7 @@ from ..ops.gather import GATHER, ONEHOT_TILE, onehot_tile_blocks
 
 # published peaks of one H100 SXM (dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12        # f32 FFMA, outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 
@@ -86,10 +87,11 @@ def device_line(device: torch.device) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(flops: float, nbytes: float):
-    """Least time on the card: max(operations at the bf16 peak, bytes at the
-    memory rate), in ms, and which of the two bounds it."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    """Least time on the card: max(operations at `peak`, the bf16 peak by
+    default, bytes at the memory rate), in ms, and which of the two bounds
+    it."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 

@@ -1033,3 +1033,230 @@ def test_sharded_render_world1_nccl_matches_render_all_rays(cuda):
     assert launches[0] == launches[1] > 0
     for got, want in zip(*outs):
         assert torch.equal(got, want)
+
+
+# ----------------------------------------------------------- probe chain
+
+def _probe_scene(dev, h, w, n_features, n_images=3, seed=31):
+    """Cameras of a ring around the workspace and seeded images and
+    features [1, n_images, h, w, .] on `dev`."""
+    from tcnerf_torch.data.synthetic import camera_ring
+    cfgs = camera_ring(n_images, height=h, width=w)
+    k4 = np.tile(np.eye(4, dtype=np.float32), (n_images, 1, 1))
+    k4[:, :3, :3] = [c["intrinsics"].reshape(3, 3) for c in cfgs]
+    ext = np.asarray([np.linalg.inv(c["pose"]) for c in cfgs], np.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.rand((1, n_images, h, w, 3), generator=gen, device=dev)
+    feats = torch.randn((1, n_images, h, w, n_features), generator=gen,
+                        device=dev)
+    return (images.cpu().numpy(), k4[None], ext[None]), feats
+
+
+def _draw_probe_biases(model, dev):
+    """Seeded biases for the Dense layers of the chain and the readout,
+    those the kernels read among them (the initializers leave them
+    zero)."""
+    from tcnerf_torch.nn.layers import Dense
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():
+        for m in (*model.fine_embedding.modules(),
+                  *model.grasp_readout.modules()):
+            if isinstance(m, Dense) and m.bias is not None:
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen,
+                                         device=dev) * 0.1)
+
+
+def _config_grasp(dev, name):
+    """The config's GraspEBM at its widths (hidden 128, 6 blocks, n_features
+    256, 42 probes, 480x640) on the card, seeded; the encoder towers are
+    built but the tests hand `prepare` seeded features."""
+    from tcnerf_torch.train.config import load_config
+    from tcnerf_torch.train.grasp_common import build_grasp_model
+    cfg = load_config([], name)
+    model = build_grasp_model(cfg, fusion="v4" if name.startswith(
+        "language") else None, device=dev).eval()
+    _draw_probe_biases(model, dev)
+    return model, cfg
+
+
+def _probe_optimizer(model, cfg, n, n_images=None):
+    from tcnerf_torch.opt.pose_optimizer import PoseOptimizer
+    oc = cfg.validation.grasp_opt_config
+    sc = oc.optimization_config
+    return PoseOptimizer(
+        model=model, workspace_bounds=cfg.generator_grasp.workspace_bounds,
+        n_initial_guesses=n,
+        n_images=n_images or oc.optimizer_config.n_images,
+        n_views=model.n_views,
+        rotation_representation=cfg.grasp_model.get(
+            "rotation_representation", "quaternion"),
+        clip_translation=oc.optimizer_config.clip_translation,
+        init_lr_t=sc.init_lr_t, decay_t=sc.decay_t, init_lr_r=sc.init_lr_r,
+        decay_r=sc.decay_r)
+
+
+def _plain_path(monkeypatch):
+    """Make `energy_prepared` take its plain path whatever it is given."""
+    from tcnerf_torch.models.grasp import GraspEBM
+    monkeypatch.setattr(GraspEBM, "probe_kernel_engages",
+                        lambda self, poses, prepared: False)
+
+
+def _energy_and_grads(opt, scene, guesses, train=(True, True)):
+    from tcnerf_torch.opt.pose_optimizer import frozen
+    state = opt.init_state(guesses)
+    t = state.translations.requires_grad_(train[0])
+    r = state.rotations.requires_grad_(train[1])
+    with frozen(opt.model):
+        e = opt._energies(t, r, scene)
+        grads = torch.autograd.grad(
+            e.sum(), [x for x, on in zip((t, r), train) if on])
+    return [x.detach() for x in (e, *grads)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["goal_1_view", "language_1_view"])
+def test_probe_kernels_energy_and_pose_gradient_match_plain(cuda, name,
+                                                            monkeypatch):
+    """At the config's widths, 3 images of 480x640 and 512 guesses
+    (64,512 probe rows): energies and d(sum E)/d(t, r) through the probe
+    kernels against the plain path on the same card (f32, TF32 off),
+    within 1e-4 (energies) and 1e-3 (gradients) of the largest |plain|;
+    one forward and one backward launch."""
+    from tcnerf_torch.core.prec import pin_fp32
+    from tcnerf_torch.ops.probe import PROBE
+    pin_fp32()
+    model, cfg = _config_grasp(cuda, name)
+    opt = _probe_optimizer(model, cfg, 512)
+    inputs, feats = _probe_scene(cuda, 480, 640, model.n_features)
+    scene = opt.prepare(inputs, feats)
+    guesses = opt.generate_initial_guesses(7)
+    before = dict(PROBE.counts)
+    got = _energy_and_grads(opt, scene, guesses)
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0) for k, v in PROBE.counts.items()}
+    _plain_path(monkeypatch)
+    want = _energy_and_grads(opt, scene, guesses)
+    assert launched == {"probe_fwd": 1, "probe_bwd": 1}
+    for g, w, tol in zip(got, want, (1e-4, 1e-3, 1e-3)):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["goal_1_view", "language_1_view"])
+def test_probe_kernels_ascent_matches_plain(cuda, name, monkeypatch):
+    """16 synchronised ascent steps of 512 guesses and the final energies:
+    the median over guesses of |kernels - plain| over the plain energies'
+    spread within the benchmark's `energy_gap_median` limit (5e-4); 33
+    launches (16 forward and backward, and the final energies' forward)."""
+    from tcnerf_torch.core.prec import pin_fp32
+    from tcnerf_torch.ops.probe import PROBE
+    pin_fp32()
+    model, cfg = _config_grasp(cuda, name)
+    opt = _probe_optimizer(model, cfg, 512)
+    inputs, feats = _probe_scene(cuda, 480, 640, model.n_features)
+    scene = opt.prepare(inputs, feats)
+    guesses = opt.generate_initial_guesses(11)
+    finals = []
+    for plain in (False, True):
+        if plain:
+            _plain_path(monkeypatch)
+        before = sum(PROBE.counts.values())
+        opt.reset_optimizer()
+        state, _ = opt.optimize_pose(opt.init_state(guesses), scene,
+                                     (True, True), 16)
+        finals.append(opt.compute_current_grasp_success(state, scene))
+        torch.cuda.synchronize()
+        assert sum(PROBE.counts.values()) - before == (0 if plain else 33)
+    got, want = (x.double().cpu() for x in finals)
+    gap = (got - want).abs() / want.std()
+    assert torch.isfinite(got).all()
+    assert float(gap.median()) <= 5e-4
+
+
+def _small_probe_grasp(dev, **kw):
+    """A GraspEBM the kernels fit (hidden 128, 6 blocks, 42 probes) at
+    48x64 with a small feature width, seeded."""
+    from tcnerf_torch.models.grasp import GraspEBM
+    m = GraspEBM(n_features=32, original_image_size=(48, 64), n_5d_poses=7,
+                 n_blocks=6, hidden_size=HID, vit_size=(32, 32), vit_dim=32,
+                 vit_heads=2, vit_hooks=(1, 2, 3, 4),
+                 readout_activation="elu", **kw)
+    init_params(m, torch.Generator().manual_seed(0))
+    m = m.to(dev).eval()
+    _draw_probe_biases(m, dev)
+    return m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["f64", "trainable", "hash_encoding",
+                                  "no_corner_gather", "two_views",
+                                  "corner_grad"])
+def test_probe_kernels_fall_back_bit_for_bit(cuda, case, monkeypatch):
+    """Where a condition of the dispatch fails, `energy_prepared` launches
+    nothing and gives the plain path's energies and pose gradients bit for
+    bit."""
+    from tcnerf_torch.ops.probe import PROBE
+    from tcnerf_torch.train.config import load_config
+    kw = {"hash_encoding": dict(hash_encoding=True),
+          "no_corner_gather": dict(corner_gather=False),
+          "two_views": dict(n_views=2)}.get(case, {})
+    model = _small_probe_grasp(cuda, **kw)
+    if case == "f64":
+        model = model.double()
+    n_images = 4 if case == "two_views" else 3
+    opt = _probe_optimizer(model, load_config([], "goal_1_view"), 16, n_images)
+    inputs, feats = _probe_scene(cuda, 48, 64, 32, n_images)
+    scene = opt.prepare(inputs, feats.to(opt.dtype))
+    if case == "corner_grad":
+        # a caller that differentiates through the features
+        scene.prepared.corner.requires_grad_()
+    guesses = opt.generate_initial_guesses(3)
+    if case == "trainable":
+        # grad mode on and the weights trainable: the grasp trainers' case
+        state = opt.init_state(guesses)
+        t = state.translations.requires_grad_()
+        r = state.rotations.requires_grad_()
+
+        def run():
+            e = opt._energies(t, r, scene)
+            return [x.detach() for x in (e, *torch.autograd.grad(e.sum(),
+                                                                 [t, r]))]
+    else:
+        def run():
+            return _energy_and_grads(opt, scene, guesses)
+    before = dict(PROBE.counts)
+    got = run()
+    assert dict(PROBE.counts) == before
+    _plain_path(monkeypatch)
+    for g, w in zip(got, run()):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_probe_kernels_follow_an_in_place_update(cuda, monkeypatch):
+    """A trainer updates the weights in place between its validation
+    ascents: the kernels' energies after such an update are the plain
+    path's (within 1e-4 of the largest), not the old weights'."""
+    from tcnerf_torch.core.prec import pin_fp32
+    from tcnerf_torch.ops.probe import PROBE
+    from tcnerf_torch.train.config import load_config
+    pin_fp32()
+    model = _small_probe_grasp(cuda)
+    opt = _probe_optimizer(model, load_config([], "goal_1_view"), 64)
+    inputs, feats = _probe_scene(cuda, 48, 64, 32)
+    scene = opt.prepare(inputs, feats)
+    state = opt.init_state(opt.generate_initial_guesses(4))
+    before = opt.compute_current_grasp_success(state, scene)
+    with torch.no_grad():
+        for p in model.probe_weights().params():
+            p.mul_(1.25)
+    n = sum(PROBE.counts.values())
+    got = opt.compute_current_grasp_success(state, scene)
+    assert sum(PROBE.counts.values()) == n + 1
+    _plain_path(monkeypatch)
+    want = opt.compute_current_grasp_success(state, scene)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    assert float((before - want).abs().max()) > 1e-2 * scale
